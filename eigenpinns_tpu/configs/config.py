@@ -3,17 +3,15 @@
 Parity with the reference's `PINNConfig` (src/config.py:5-50): the YAML is
 organized in sections (config / sampler / utils / correctorGNN /
 multigridGNN / runner) whose keys are merged into a single flat namespace.
-Extends the reference's 30 parameters with TPU-specific knobs (dtype,
+Extends the reference's 30 parameters with framework knobs (dtype,
 device mesh shape, coarse solver choice) — all defaulted so reference
-YAML files load unchanged.
+YAML files load unchanged. PyYAML is needed only by `from_yaml`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
-
-import yaml
 
 
 @dataclasses.dataclass
@@ -61,7 +59,7 @@ class Config:
         default_factory=lambda: [256, 512, 1024])
     k_neighbors: int = 21
 
-    # --- TPU-framework extensions (not in the reference) ---
+    # --- framework extensions (not in the reference) ---
     dtype: str = "float32"
     coarse_solver: str = "eigsh"          # 'eigsh' (host) | 'lobpcg' (device)
     operator_format: str = "ell"           # 'ell' | 'banded' | 'auto'
@@ -99,20 +97,22 @@ class Config:
                                  # fusion). Explicit True on a sharded run
                                  # warns loudly; falls back per-level when
                                  # the fused operator cannot be built.
-    loss_mxu_precision: str = "high"  # banded SpMM passes INSIDE the loss:
-                                      # 'high' = bf16x3 (~1e-5 rel err,
-                                      # 1.4x faster), 'highest' = f32,
-                                      # 'bf16' = band STORED bf16 (half
-                                      # the HBM bytes, ~1e-3 operator
-                                      # rounding — raw-loss accuracy
-                                      # drops; pair with polish).
-                                      # Rayleigh-Ritz / LOBPCG polish
-                                      # always run 'highest'.
+    loss_mxu_precision: str = "high"  # operator products INSIDE the loss
+                                      # (sparse.ops.operator_dot):
+                                      # 'high' = Precision.HIGH (TF32 on
+                                      # the H100, ~1e-3 rel err),
+                                      # 'highest' = f32, 'bf16' = operator
+                                      # STORED bf16 (half the bytes,
+                                      # ~1e-3 operator rounding — pair
+                                      # with polish). Rayleigh-Ritz /
+                                      # LOBPCG polish always run 'highest'.
 
     @classmethod
     def from_yaml(cls, path: str) -> "Config":
         """Load a sectioned YAML, merging every section flat
         (src/config.py:41-50)."""
+        import yaml
+
         with open(path, "r") as fh:
             raw = yaml.safe_load(fh) or {}
         merged: dict[str, Any] = {}

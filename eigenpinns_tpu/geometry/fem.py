@@ -1,6 +1,6 @@
 """P1 finite-element assembly of Laplace-Beltrami operators on triangle meshes.
 
-TPU-first re-design of the reference's per-element Python assembly loop
+Vectorized re-design of the reference's per-element Python assembly loop
 (`src/Mesh.py:348-364` calling `Bmatrix`/`StiffnessMatrix`/`MassMatrix`,
 `src/Mesh.py:180-234`): here all F elements are assembled at once with
 vectorized JAX ops and scattered with `segment_sum` — one fused XLA
@@ -112,7 +112,7 @@ def _triangle_geometry_np(verts: np.ndarray, faces: np.ndarray):
     """Float64 numpy mirror of `triangle_geometry` for host-side assembly.
 
     Kept separate so offline preprocessing and test oracles run in f64
-    regardless of the JAX default dtype (f32 on TPU).
+    regardless of the JAX default dtype (f32 unless x64 is enabled).
     """
     p = verts[faces]
     p0, p1, p2 = p[:, 0], p[:, 1], p[:, 2]

@@ -17,7 +17,7 @@ point-cloud variant:
 
 Host-side numpy/scipy by design: operator assembly is offline
 preprocessing (it runs once per hierarchy level); the assembled sparse
-operators are then converted to padded-ELL and consumed on-TPU by
+operators are then converted to padded-ELL and consumed on device by
 `eigenpinns_tpu.sparse`. Step 6 is vectorized over all triangles.
 """
 

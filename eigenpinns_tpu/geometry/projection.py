@@ -94,7 +94,7 @@ def project_points(mesh: TriMesh, points: np.ndarray,
 def project_points_device(verts, faces, points):
     """Brute-force vmapped projection over ALL faces on device (JAX).
 
-    O(Q * F) — the right trade on TPU for moderate F; exact minimum
+    O(Q * F) — the right trade on an accelerator for moderate F; exact minimum
     (no candidate-set approximation).
     """
     import jax

@@ -3,7 +3,7 @@
 Two schemes from the reference's direct-learning notebooks:
 
   * Newton-Schulz: iterate Y_{t+1} = Y_t (3 I - G Y_t^2)/2 towards
-    G^{-1/2} using ONLY matmuls — MXU-native, stable gradients
+    G^{-1/2} using ONLY matmuls — dense-matmul hardware, stable gradients
     (scripts/simplified_loss.ipynb cell 0:44-87);
   * SVD/eigh whitening: U B^{-1/2} with B = U^T M U via eigh
     (loss_with_rigid_body.ipynb cell 0:214-222). The recorded reference
@@ -24,7 +24,7 @@ def newton_schulz_inv_sqrt(G: jnp.ndarray, n_iters: int = 5):
     """A^{-1/2} for SPD A via the coupled Newton-Schulz iteration.
 
     Frobenius pre-scaling ensures convergence (||I - A/s||_2 < 1).
-    Matmul-only: ideal for the MXU and for reverse-mode AD.
+    Matmul-only: ideal for the matrix units and for reverse-mode AD.
     """
     k = G.shape[0]
     eye = jnp.eye(k, dtype=G.dtype)

@@ -11,10 +11,12 @@ enabling deflation sweeps over lambda.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
+
+from eigenpinns_tpu.models.nn import Module
 
 
 def dirichlet_window(a: float, b: float) -> Callable:
@@ -34,14 +36,15 @@ def gaussian_window(scale: float = 1.0) -> Callable:
     return g
 
 
-class ParametricAnsatz(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class ParametricAnsatz(Module):
     """f(x, lambda) = f_b(x) + g(x) * NN([x, lambda]).
 
     `window` is g(x); `boundary` is f_b(x) (defaults to zero).
     x: (N, d); lam: scalar or (n_lam,). Output: (N, n_lam) — the shared
     parametric family evaluated at each lambda. All lambdas are evaluated
-    in ONE batched net call (lambda tiled into the batch axis), so the MXU
-    sees a single (N * n_lam, d+1) matmul instead of n_lam small ones.
+    in ONE batched net call (lambda tiled into the batch axis), so the
+    device sees a single (N * n_lam, d+1) matmul instead of n_lam small ones.
     """
 
     hidden: Sequence[int]
@@ -49,8 +52,7 @@ class ParametricAnsatz(nn.Module):
     boundary: Callable | None = None
     activation: str = "tanh"
 
-    @nn.compact
-    def __call__(self, x, lam):
+    def forward(self, scope, x, lam):
         from eigenpinns_tpu.models.mlp import MLP
 
         lam = jnp.atleast_1d(jnp.asarray(lam, dtype=x.dtype))
@@ -60,7 +62,8 @@ class ParametricAnsatz(nn.Module):
         lam_tiled = jnp.broadcast_to(lam[:, None, None], (n_lam, n, 1))
         feats = jnp.concatenate([x_tiled, lam_tiled], axis=2)
         net = MLP(tuple(self.hidden), 1, activation=self.activation)
-        vals = net(feats.reshape(n_lam * n, d + 1)).reshape(n_lam, n).T
+        vals = net(scope, feats.reshape(n_lam * n, d + 1)).reshape(
+            n_lam, n).T
         g = jnp.reshape(self.window(x), (n, 1))
         out = g * vals
         if self.boundary is not None:

@@ -9,38 +9,38 @@ Capability parity with `src/corrector_model.py`:
     the refine_fixed notebook variant
     (multigrid_gnn_refine_fixed.ipynb cell 4:602-640)
 
-TPU-first formulation: neighbor aggregation is a segment-sum (no scatter
-index_add_ loop), the GCN step is an ELL SpMM; both fuse into the MLP
-matmuls under jit.
+Neighbor aggregation is a segment-sum (no scatter index_add_ loop) or an
+ELL SpMM; both fuse into the MLP matmuls under jit.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
 
 from eigenpinns_tpu.models.mlp import MLP
+from eigenpinns_tpu.models.nn import Module
 from eigenpinns_tpu.sparse import BandedELL, SparseELL, neighbor_mean, spmm
 from eigenpinns_tpu.sparse.ops import FunctionOperator
 
 
-class SimpleCorrector(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class SimpleCorrector(Module):
     """Neighbor-mean aggregation + MLP."""
 
     hidden: Sequence[int]
     out_dim: int
     dropout: float = 0.0
-    compute_dtype: str | None = None  # e.g. 'bfloat16' MXU passes; params
+    compute_dtype: str | None = None  # e.g. 'bfloat16' matmuls; params
                                       # and outputs stay f32 (models/mlp.py)
 
-    @nn.compact
-    def __call__(self, x, graph, deterministic: bool = True):
+    def forward(self, scope, x, graph, deterministic: bool = True):
         # graph: (2, E) edge_index OR a prebuilt mean-aggregation operator
         # (SparseELL / BandedELL from neighbor_mean_operator, or a
         # FunctionOperator wrapping a sharded SpMM) — operators keep both
-        # the forward and the backward scatter-free on TPU.
+        # the forward and the backward scatter-free.
         if isinstance(graph, (SparseELL, BandedELL, FunctionOperator)):
             agg = spmm(graph, x)
         else:
@@ -49,10 +49,11 @@ class SimpleCorrector(nn.Module):
         return MLP(self.hidden, self.out_dim, activation="relu",
                    dropout=self.dropout, small_output_init=True,
                    compute_dtype=self.compute_dtype)(
-                       h, deterministic=deterministic)
+                       scope, h, deterministic=deterministic)
 
 
-class SpectralCorrector(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class SpectralCorrector(Module):
     """One pre-normalized GCN aggregation (A_norm @ x) + MLP."""
 
     hidden: Sequence[int]
@@ -60,17 +61,17 @@ class SpectralCorrector(nn.Module):
     dropout: float = 0.0
     compute_dtype: str | None = None
 
-    @nn.compact
-    def __call__(self, x, a_norm, deterministic: bool = True):
+    def forward(self, scope, x, a_norm, deterministic: bool = True):
         agg = spmm(a_norm, x)
         h = jnp.concatenate([x, agg], axis=1)
         return MLP(self.hidden, self.out_dim, activation="relu",
                    dropout=self.dropout, small_output_init=True,
                    compute_dtype=self.compute_dtype)(
-                       h, deterministic=deterministic)
+                       scope, h, deterministic=deterministic)
 
 
-class AdaptiveCorrector(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class AdaptiveCorrector(Module):
     """SimpleCorrector + learnable per-mode output scales (init 0.01)."""
 
     hidden: Sequence[int]
@@ -79,14 +80,14 @@ class AdaptiveCorrector(nn.Module):
     scale_init: float = 0.01
     compute_dtype: str | None = None
 
-    @nn.compact
-    def __call__(self, x, graph, deterministic: bool = True):
+    def forward(self, scope, x, graph, deterministic: bool = True):
         corr = SimpleCorrector(self.hidden, self.out_dim, self.dropout,
                                self.compute_dtype)(
-            x, graph, deterministic=deterministic)
-        scales = self.param(
+            scope, x, graph, deterministic=deterministic)
+        scales = scope.param(
             "mode_scales",
-            lambda key, shape: jnp.full(shape, self.scale_init),
+            lambda key, shape, dtype: jnp.full(shape, self.scale_init,
+                                               dtype),
             (self.out_dim,),
         )
         return corr * scales[None, :]

@@ -12,13 +12,16 @@ Covers the reference's two direct-learning model families:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from eigenpinns_tpu.models.nn import Module, dense
 
-class JointEigenNet(nn.Module):
+
+@dataclasses.dataclass(frozen=True)
+class JointEigenNet(Module):
     """MLP mapping coordinates to k eigenfunction values."""
 
     hidden: Sequence[int]
@@ -26,16 +29,16 @@ class JointEigenNet(nn.Module):
     activation: str = "silu"
     compute_dtype: str | None = None  # see MLP.compute_dtype
 
-    @nn.compact
-    def __call__(self, x):
+    def forward(self, scope, x):
         from eigenpinns_tpu.models.mlp import MLP
 
         return MLP(tuple(self.hidden), self.n_modes,
                    activation=self.activation,
-                   compute_dtype=self.compute_dtype)(x)
+                   compute_dtype=self.compute_dtype)(scope, x)
 
 
-class LambdaEigenNet(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class LambdaEigenNet(Module):
     """Single eigenfunction u(x) with learnable eigenvalue lambda.
 
     Returns (u: (N, 1), lam: scalar). lambda enters every layer so the
@@ -47,23 +50,23 @@ class LambdaEigenNet(nn.Module):
     lambda_init: float = 0.1
     activation: str = "sin"
 
-    @nn.compact
-    def __call__(self, x):
+    def forward(self, scope, x):
         from eigenpinns_tpu.models.mlp import ACTIVATIONS
 
         act = ACTIVATIONS[self.activation]
         # |w| on a constant input == learnable nonnegative eigenvalue
         # (cell 1:29-35 of the deflation notebook, reimagined as a param).
-        raw = self.param("lambda_raw",
-                         lambda key, shape: jnp.full(shape, self.lambda_init),
-                         (1,))
+        raw = scope.param(
+            "lambda_raw",
+            lambda key, shape, dtype: jnp.full(shape, self.lambda_init, dtype),
+            (1,))
         lam = jnp.abs(raw)[0]
         n = x.shape[0]
         lam_col = jnp.full((n, 1), 1.0) * lam
         h = jnp.concatenate([x, lam_col], axis=1)
         for i, width in enumerate(self.hidden):
-            h = nn.Dense(width, name=f"hidden_{i}")(h)
+            h = dense(scope, h, width, name=f"hidden_{i}")
             h = act(h)
             h = jnp.concatenate([h, lam_col], axis=1)
-        u = nn.Dense(1, name="out")(h)
+        u = dense(scope, h, 1, name="out")
         return u, lam

@@ -1,4 +1,4 @@
-"""MLP building blocks (flax.linen).
+"""MLP building blocks.
 
 Activations cover the reference model zoo: ReLU correctors
 (src/corrector_model.py), SiLU joint eigen-nets
@@ -8,16 +8,18 @@ lambda-conditioned nets (iterative_eigenvalues_on_cloud.ipynb cell 1:20-67).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from eigenpinns_tpu.models.nn import Module, dense, dropout, lecun_normal
+
 ACTIVATIONS: dict[str, Callable] = {
-    "relu": nn.relu,
-    "silu": nn.silu,
-    "gelu": nn.gelu,
+    "relu": jax.nn.relu,
+    "silu": jax.nn.silu,
+    "gelu": jax.nn.gelu,
     "tanh": jnp.tanh,
     "sin": jnp.sin,
 }
@@ -31,7 +33,8 @@ def small_init(std: float = 0.01):
     return init
 
 
-class MLP(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class MLP(Module):
     """Plain MLP: hidden layers + linear head.
 
     `small_output_init` reproduces the reference's small-std output-layer
@@ -45,27 +48,24 @@ class MLP(nn.Module):
     dropout: float = 0.0
     small_output_init: bool = False
     first_layer_omega: float = 1.0  # SIREN-style input scaling for sin nets
-    # Matmul/activation compute dtype (params stay f32). 'bfloat16' puts
-    # the hidden layers on the MXU's bf16 path — at 300k nodes the MLP
-    # fwd+bwd is compute-bound, so this is a large step-time lever; the
-    # f32 output head is restored by the final cast.
+    # Matmul/activation compute dtype (params stay f32). 'bfloat16' runs
+    # the hidden layers on the bf16 tensor cores; the f32 output head is
+    # restored by the final cast.
     compute_dtype: str | None = None
 
-    @nn.compact
-    def __call__(self, x, deterministic: bool = True):
+    def forward(self, scope, x, deterministic: bool = True):
         act = ACTIVATIONS[self.activation]
         dt = jnp.dtype(self.compute_dtype) if self.compute_dtype else None
         in_dtype = x.dtype
         if dt is not None:
             x = x.astype(dt)
         for i, h in enumerate(self.hidden):
-            x = nn.Dense(h, name=f"hidden_{i}", dtype=dt)(x)
+            x = dense(scope, x, h, name=f"hidden_{i}", dtype=dt)
             x = act(self.first_layer_omega * x) if (
                 i == 0 and self.activation == "sin") else act(x)
-            if self.dropout > 0.0:
-                x = nn.Dropout(self.dropout, deterministic=deterministic)(x)
+            x = dropout(scope, x, self.dropout, deterministic)
         kernel_init = (small_init() if self.small_output_init
-                       else nn.initializers.lecun_normal())
-        out = nn.Dense(self.out_dim, name="out", kernel_init=kernel_init,
-                       bias_init=nn.initializers.zeros, dtype=dt)(x)
+                       else lecun_normal())
+        out = dense(scope, x, self.out_dim, name="out",
+                    kernel_init=kernel_init, dtype=dt)
         return out.astype(in_dtype)

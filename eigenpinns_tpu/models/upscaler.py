@@ -9,13 +9,16 @@ the matrix-only multigrid driver (`eigenpinns_tpu.solvers.upscale`).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from eigenpinns_tpu.models.nn import Module
 
-class HierarchicalUpscaler(nn.Module):
+
+@dataclasses.dataclass(frozen=True)
+class HierarchicalUpscaler(Module):
     """u_fine = base + MLP(u_coarse); lam = trainable, init from coarse.
 
     `base` (typically an interpolation prolongation of u_coarse) anchors
@@ -30,15 +33,16 @@ class HierarchicalUpscaler(nn.Module):
     n_fine: int
     lambda_init: float = 0.0
 
-    @nn.compact
-    def __call__(self, u_coarse, base=None):
+    def forward(self, scope, u_coarse, base=None):
         from eigenpinns_tpu.models.mlp import MLP
 
         h = jnp.reshape(u_coarse, (1, -1))
         u_fine = MLP(tuple(self.hidden), self.n_fine,
-                     activation="tanh", small_output_init=True)(h)[0]
+                     activation="tanh", small_output_init=True)(scope, h)[0]
         if base is not None:
             u_fine = base + u_fine
-        lam = self.param(
-            "lam", lambda key, shape: jnp.full(shape, self.lambda_init), ())
+        lam = scope.param(
+            "lam",
+            lambda key, shape, dtype: jnp.full(shape, self.lambda_init, dtype),
+            ())
         return u_fine, lam

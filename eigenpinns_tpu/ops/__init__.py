@@ -1,7 +1,7 @@
 """Compute-op namespace: re-exports the framework's operator kernels.
 
 The op surface lives in two implementation packages — `sparse/` (operator
-formats and SpMM/Gram kernels, including the Pallas banded path) and
+formats and their SpMM/Gram products) and
 `operators/` (problem definitions: Laplace-Beltrami assembly lives in
 `geometry/`, Schrodinger and eikonal residuals here). This module gathers
 them under one import for discoverability:
@@ -17,8 +17,6 @@ from eigenpinns_tpu.sparse import (  # noqa: F401
     SparseELL,
     as_operator,
     banded_spmm,
-    banded_spmm_pallas,
-    banded_spmm_reference,
     bsr_spmm,
     bsr_spmm_gram,
     rolling_spmm,

@@ -1,7 +1,7 @@
 """Device meshes and sharding helpers.
 
 The reference is single-device (`torch.device(...)`,
-src/multigrid_model.py:20); scaling here follows the TPU-native plan of
+src/multigrid_model.py:20); scaling here follows the plan of
 SURVEY.md section 2.3: a 1-D (or user-shaped) `jax.sharding.Mesh`, node /
 collocation axes sharded across devices ("data" axis), model parameters
 replicated, k x k Gram/Rayleigh reductions and gradient psums inserted by

@@ -1,4 +1,4 @@
-"""Distributed banded operators: ring-halo exchange + per-shard MXU SpMM.
+"""Distributed banded operators: ring-halo exchange + per-shard banded SpMM.
 
 This is the multi-chip form of the banded-dense format
 (sparse/banded.py) — the production sharded SpMM for mesh/cloud
@@ -10,9 +10,9 @@ SURVEY.md sec 5's node-sharding plan:
     device, with the operator RCM-ordered so every nonzero of shard s's
     rows lies within the halo window [s*per - B, (s+1)*per + B);
   * each SpMM exchanges ONE (B, k) halo slice per side via
-    `lax.ppermute` over ICI (O(B*k) bytes — independent of N), then runs
-    the shard-local rectangular banded block through the Pallas
-    banded kernel: contiguous DMA + (tile, B) @ (B, k) MXU matmuls;
+    `lax.ppermute` between devices (O(B*k) bytes — independent of N),
+    then runs the shard-local rectangular banded block through the
+    banded product (sparse/banded.py): (tile, B) @ (B, k) matmuls;
   * the backward pass applies a prebuilt banded TRANSPOSE block per
     shard (banded_spmm's scatter-free custom VJP), and shard_map's AD
     transposes the ppermutes to route halo cotangents back to their
@@ -34,7 +34,7 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from eigenpinns_tpu.sparse.banded import BandedELL, _round_up, banded_spmm
 
@@ -136,7 +136,9 @@ class ShardedBanded:
                    reorder: bool = True, max_bandwidth: int = 4096):
         """Shard a (numerically or structurally banded) operator.
 
-        Returns (op, perm). Raises ValueError when the stencil cannot fit
+        Returns (op, perm); the op's arrays stay on the host until
+        `sharded_banded_spmm` places each shard on its device. Raises
+        ValueError when the stencil cannot fit
         a one-neighbor halo (bandwidth > per) or exceeds max_bandwidth —
         callers fall back to all_gather paths.
         """
@@ -216,24 +218,20 @@ class ShardedBanded:
             starts_t_arr[s] = stt
 
         op = cls(
-            band=jnp.asarray(band, dtype),
-            starts=jnp.asarray(starts_rel),
-            band_t=jnp.asarray(np.stack(band_t_list), dtype),
-            starts_t=jnp.asarray(starts_t_arr),
+            band=band.astype(dtype),
+            starts=starts_rel,
+            band_t=np.stack(band_t_list).astype(dtype),
+            starts_t=starts_t_arr,
             n=n, n_dev=n_dev, per=per, B=B, tile=tile)
         return op, perm
 
 
-def sharded_banded_spmm(op: ShardedBanded, mesh: Mesh, axis: str = "data"):
-    """Build f(U_sharded (n_pad, k)) -> (A U) sharded.
-
-    Two (B, k) ppermutes + one shard-local banded SpMM per application;
-    differentiable (banded VJP via the prebuilt transpose blocks,
-    ppermute cotangents routed back by shard_map AD).
-    """
+def _halo_spmm(op: ShardedBanded, mesh: Mesh, axis: str, u_padded):
+    """Two (B, k) ppermutes + one shard-local banded SpMM; differentiable
+    (banded VJP via the prebuilt transpose blocks, ppermute cotangents
+    routed back by shard_map AD)."""
     per, B, tile, win = op.per, op.B, op.tile, op.win
     n_dev = op.n_dev
-    win_pad = _round_up(win, tile)
 
     def inner(band, starts, band_t, starts_t, u_blk):
         u = u_blk[0]                                    # (per, k)
@@ -252,15 +250,10 @@ def sharded_banded_spmm(op: ShardedBanded, mesh: Mesh, axis: str = "data"):
         inner, mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis)),
         out_specs=P(axis))
-
-    def apply(u_padded):
-        k = u_padded.shape[-1]
-        out = f(op.band, op.starts, op.band_t, op.starts_t,
-                u_padded.reshape(n_dev, per, k))
-        return out.reshape(-1, k)
-
-    del win_pad
-    return apply
+    k = u_padded.shape[-1]
+    out = f(op.band, op.starts, op.band_t, op.starts_t,
+            u_padded.reshape(n_dev, per, k))
+    return out.reshape(-1, k)
 
 
 @jax.tree_util.register_pytree_node_class
@@ -304,22 +297,12 @@ class ShardedRemainder:
         slot = np.arange(R.nnz) - np.repeat(R.indptr[:-1], deg)
         idx[rows, slot] = R.indices
         val[rows, slot] = R.data
-        return cls(jnp.asarray(idx.reshape(n_dev, per, W)),
-                   jnp.asarray(val.reshape(n_dev, per, W), dtype),
-                   n, n_dev)
+        return cls(idx.reshape(n_dev, per, W),
+                   val.reshape(n_dev, per, W).astype(dtype), n, n_dev)
 
 
-def sharded_split_spmm(core: ShardedBanded, rem: ShardedRemainder | None,
-                       mesh: Mesh, axis: str = "data"):
-    """f(U_sharded) -> (A_band + A_rem) U for a SYMMETRIC split operator.
-
-    Core rides the halo path; the remainder all_gathers U (its columns
-    cross clusters arbitrarily). The VJP reapplies the forward — valid
-    because SplitBanded.from_scipy enforces numeric symmetry.
-    """
-    core_apply = sharded_banded_spmm(core, mesh, axis)
-    if rem is None:
-        return core_apply
+def _remainder_spmm(rem: ShardedRemainder, mesh: Mesh, axis: str,
+                    u_padded):
     n_dev, per = rem.n_dev, rem.indices.shape[1]
 
     def rem_inner(idx, val, u_blk):
@@ -334,22 +317,87 @@ def sharded_split_spmm(core: ShardedBanded, rem: ShardedRemainder | None,
         rem_inner, mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis)),
         out_specs=P(axis))
+    k = u_padded.shape[-1]
+    return f_rem(rem.indices, rem.values,
+                 u_padded.reshape(n_dev, per, k)).reshape(-1, k)
 
-    @jax.custom_vjp
-    def apply(u_padded):
-        k = u_padded.shape[-1]
-        r = f_rem(rem.indices, rem.values,
-                  u_padded.reshape(n_dev, per, k)).reshape(-1, k)
-        return core_apply(u_padded) + r
 
-    def fwd(u):
-        return apply(u), None
+def _float_zeros(x):
+    """Zero cotangent of one operator leaf (float0 for integer tables)."""
+    if jnp.issubdtype(x.dtype, jnp.integer):
+        return np.zeros(x.shape, jax.dtypes.float0)
+    return jnp.zeros_like(x)
 
-    def bwd(_, g):
-        return (apply(g),)   # A symmetric => A^T g = A g
 
-    apply.defvjp(fwd, bwd)
-    return apply
+@jax.custom_vjp
+def _split_spmm(A: "ShardedSpMM", u_padded):
+    return (_halo_spmm(A.core, A.mesh, A.axis, u_padded)
+            + _remainder_spmm(A.rem, A.mesh, A.axis, u_padded))
+
+
+def _split_fwd(A, u_padded):
+    return _split_spmm(A, u_padded), A
+
+
+def _split_bwd(A, g):
+    # A symmetric => A^T g = A g; the operator is a constant.
+    return jax.tree_util.tree_map(_float_zeros, A), _split_spmm(A, g)
+
+
+_split_spmm.defvjp(_split_fwd, _split_bwd)
+
+
+@jax.tree_util.register_pytree_node_class
+class ShardedSpMM:
+    """U_sharded (n_pad, k) -> A U: the halo-banded core, plus for a
+    cluster-split operator the all_gather'd remainder.
+
+    A pytree whose operator arrays are its children, so a jitted caller
+    takes them as arguments: captured by a closure they would be baked
+    into the executable as constants, which a multi-GB operator (300k
+    nodes) does not fit. The factories below put shard s of every array
+    on device s once, so no device ever holds the whole operator and no
+    call reshards it.
+    """
+
+    def __init__(self, core: ShardedBanded, rem, mesh: Mesh,
+                 axis: str = "data"):
+        self.core, self.rem, self.mesh, self.axis = core, rem, mesh, axis
+
+    def tree_flatten(self):
+        return (self.core, self.rem), (self.mesh, self.axis)
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        return cls(*children, *aux)
+
+    def __call__(self, u_padded):
+        if self.rem is None:
+            return _halo_spmm(self.core, self.mesh, self.axis, u_padded)
+        return _split_spmm(self, u_padded)
+
+
+def _place(tree, mesh: Mesh, axis: str):
+    """Shard every (n_dev, ...) operator array over the mesh axis."""
+    return jax.device_put(tree, NamedSharding(mesh, P(axis)))
+
+
+def sharded_banded_spmm(op: ShardedBanded, mesh: Mesh,
+                        axis: str = "data") -> ShardedSpMM:
+    """f(U_sharded (n_pad, k)) -> (A U) sharded, for a halo-banded A."""
+    return ShardedSpMM(_place(op, mesh, axis), None, mesh, axis)
+
+
+def sharded_split_spmm(core: ShardedBanded, rem: ShardedRemainder | None,
+                       mesh: Mesh, axis: str = "data") -> ShardedSpMM:
+    """f(U_sharded) -> (A_band + A_rem) U for a SYMMETRIC split operator.
+
+    Core rides the halo path; the remainder all_gathers U (its columns
+    cross clusters arbitrarily). The VJP reapplies the forward — valid
+    because SplitBanded.from_scipy enforces numeric symmetry.
+    """
+    return ShardedSpMM(_place(core, mesh, axis), _place(rem, mesh, axis),
+                       mesh, axis)
 
 
 def _split_decompose(Ap, tile: int, window: int):

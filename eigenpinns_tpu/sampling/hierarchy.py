@@ -5,7 +5,7 @@ hierarchy of target sizes, build per-level point sets X, operators (K, M),
 kNN/connectivity edge lists, prolongations P, and smoothed initial
 eigenvector guesses U. Differences from the reference, by design:
 
-  * operators are canonicalized ONCE into TPU-friendly formats
+  * operators are canonicalized ONCE into device operator formats
     (SparseELL / Diagonal) — the reference reconverted scipy->torch every
     epoch (src/multigrid_model.py:306-307, the known hot-loop bug);
   * the coarsest-level exact solve can run on device (LOBPCG) or host
@@ -285,9 +285,6 @@ def build_hierarchy(
 ) -> Hierarchy:
     """Build the full multiresolution problem (Sampler.preprocess_mesh
     parity, src/samplers.py:283-286)."""
-    import eigenpinns_tpu
-
-    eigenpinns_tpu.warmup_transfer_async()
     if sampler_type not in SAMPLER_TYPES:
         raise ValueError(
             f"sampler_type must be one of {SAMPLER_TYPES}, got "
@@ -323,14 +320,12 @@ def build_hierarchy(
 
     actual = [x.shape[0] for x in X_list]
 
-    # Optional RCM permutation per level for the MXU operator formats.
-    # Format choice (measured at 300k, see docs/PARITY.md): the
-    # rolling-window band (sparse/rolling.py) moves band+delta bytes and
-    # wins for NARROW mode counts (k <= ~32, where its U traffic is
-    # negligible); the strip-BSR format (sparse/bsr.py) skips the band's
-    # 66% zero tiles but pays a full (128, k_pad=128) U gather per
-    # nonempty tile, so it wins at k ~ 128 (8.7 vs 11.7 ms) and is the
-    # ONLY single-kernel option when the bandwidth explodes (no cap).
+    # Optional RCM permutation per level for the banded/tiled formats.
+    # Format choice: the rolling-window band (sparse/rolling.py) for
+    # narrow mode counts (k <= 32), strip-BSR (sparse/bsr.py, only the
+    # nonempty tiles, no bandwidth cap) above. The rule is not yet
+    # re-decided on the H100, where gather-ELL measured fastest at 300k
+    # nodes for both k=20 and k=128 (PERF.md).
     # Every per-level array below is permuted consistently; `perms` lets
     # consumers map back.
     perms = None

@@ -52,7 +52,7 @@ def prolongation_matrix(X_coarse: np.ndarray, X_fine: np.ndarray,
 def knn_graph_device(X, k: int):
     """On-device brute-force kNN via pairwise distances + lax.top_k.
 
-    O(N^2) FLOPs on the MXU — the right trade at <=100k points on TPU;
+    O(N^2) FLOPs in dense matmuls — the right trade at <=100k points;
     beyond that, tile with the Pallas distance kernel (future work noted
     in SURVEY.md section 7 slice 3).
     """

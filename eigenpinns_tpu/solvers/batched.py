@@ -1,10 +1,10 @@
 """Batched eigen-learning over a mesh family (vmap over operators).
 
 The BASELINE.json stretch configuration calls for a spectral basis
-"batched over a mesh family". TPU-natively that is a vmap: stack the
+"batched over a mesh family". In JAX that is a vmap: stack the
 family's operators (padded to a common ELL shape), hold one set of
 network parameters PER MESH, and train every mesh simultaneously in a
-single fused program — the MXU sees one batched matmul instead of F
+single fused program — the device sees one batched matmul instead of F
 sequential small ones.
 
 Constraints: diagonal (lumped) mass matrices; meshes padded to the
@@ -88,9 +88,6 @@ def train_joint_family(
     polish_tol: float = 1e-6,
 ) -> BatchedResult:
     """Jointly learn the lowest n_modes of every mesh in the family."""
-    import eigenpinns_tpu
-
-    eigenpinns_tpu.warmup_transfer_async()
     idx, val, mdiag, mask, X, sizes = _pack_family(K_list, M_list, X_list)
     F, N, W = idx.shape
     k = n_modes

@@ -67,9 +67,6 @@ def solve_deflation(
     log_every: int = 0,
 ) -> DeflationResult:
     """Sequentially find the lowest n_modes eigenpairs of K u = lam M u."""
-    import eigenpinns_tpu
-
-    eigenpinns_tpu.warmup_transfer_async()
     X = jnp.asarray(X, dtype=jnp.float32)
     n = X.shape[0]
 
@@ -252,7 +249,7 @@ def solve_deflation_adaptive(
     whole loop (including the reinit, via `lax.cond`) runs inside
     scan-fused jit chunks.
 
-    TPU-native deviations (documented, not behavioral accidents):
+    Deliberate deviations (documented, not behavioral accidents):
       * the reference slices the POINTS into minibatches and applies the
         full N x N sparse operator to the (B, 1) batch — dimensionally
         consistent only at B = N. Here a minibatch is a random ROW
@@ -284,9 +281,6 @@ def solve_deflation_adaptive(
         slope EMA floors at ~2e-3, four orders above the notebook's
         1e-7 — it only works full-batch, where the loss is smooth.
     """
-    import eigenpinns_tpu
-
-    eigenpinns_tpu.warmup_transfer_async()
     X = jnp.asarray(X, dtype=jnp.float32)
     n = X.shape[0]
     B = n if minibatch is None or minibatch > n else int(minibatch)

@@ -11,7 +11,7 @@ program in which
   * the model forward is embarrassingly row-parallel (GSPMD keeps it
     local to each shard),
   * K U / M U ride the halo-banded sharded SpMM (two (B, k) ppermutes
-    over ICI + per-shard MXU banded kernels — parallel/sharded_banded.py),
+    between devices + per-shard banded products — parallel/sharded_banded.py),
     with the cluster-split all_gather remainder at 1M-cloud scale,
   * every k x k reduction (Rayleigh numerators/denominators, the
     M-Gram) is a jnp einsum over the sharded node axis that XLA GSPMD
@@ -87,6 +87,10 @@ def _is_diagonal(M) -> bool:
     return (M - sp.diags(M.diagonal())).nnz == 0
 
 
+def _scale_rows(d, u):
+    return d[:, None] * u
+
+
 def prepare_sharded_problem(K, M, X=None, mesh=None, n_devices=None,
                             dtype=jnp.float32, tile: int = 128,
                             max_bandwidth: int = 4096,
@@ -111,7 +115,7 @@ def prepare_sharded_problem(K, M, X=None, mesh=None, n_devices=None,
     if _is_diagonal(M):
         d = np.zeros(n_pad, dtype=np.float32)
         d[:n] = Mp.diagonal()
-        m_diag = jnp.asarray(d)
+        m_diag = d
         spmm_M = None
     elif kind == "banded":
         coreM, _ = ShardedBanded.from_scipy(
@@ -128,8 +132,9 @@ def prepare_sharded_problem(K, M, X=None, mesh=None, n_devices=None,
         spmm_M = sharded_split_spmm(coreM, remM, mesh)
 
     if spmm_M is None:
-        def spmm_M(u, _d=m_diag):  # noqa: F811 - lumped-mass fast path
-            return _d[:, None] * u
+        # lumped-mass fast path; a Partial keeps m_diag a traced leaf
+        m_diag = jax.device_put(m_diag, NamedSharding(mesh, P("data")))
+        spmm_M = jax.tree_util.Partial(_scale_rows, m_diag)
 
     return ShardedProblem(spmm_K=spmm_K, spmm_M=spmm_M, m_diag=m_diag,
                           mesh=mesh, perm=perm, n=n, n_pad=n_pad, kind=kind)
@@ -168,9 +173,6 @@ def train_joint_sharded(
     K, M: scipy sparse (symmetric); X: (n, d) coordinates in the SAME
     row order. Pass a prebuilt `problem` to reuse preprocessing.
     """
-    import eigenpinns_tpu
-
-    eigenpinns_tpu.warmup_transfer_async()
     prob = problem if problem is not None else prepare_sharded_problem(
         K, M, X=X, mesh=mesh, n_devices=n_devices,
         max_bandwidth=max_bandwidth, window=window)
@@ -185,9 +187,13 @@ def train_joint_sharded(
 
     shard = NamedSharding(mesh, P("data"))
     repl = NamedSharding(mesh, P())
+    # The operators travel as jit arguments (pytree callables), never as
+    # closure constants: a 300k-node band does not fit in an executable.
     data = {
         "X": jax.device_put(jnp.asarray(X_p), shard),
         "mask": jax.device_put(jnp.asarray(mask_p), shard),
+        "K": prob.spmm_K,
+        "M": prob.spmm_M,
     }
 
     model = JointEigenNet(tuple(hidden), n_modes, activation=activation,
@@ -204,10 +210,10 @@ def train_joint_sharded(
 
     def loss_fn(params, data):
         U = predict(params, data)
-        Ku = prob.spmm_K(U)
-        Mu = prob.spmm_M(U)
+        Ku = data["K"](U)
+        Mu = data["M"](U)
         # GSPMD: the sums over the sharded node axis become local
-        # partials + psum over ICI.
+        # partials + psum between devices.
         lam = jnp.sum(U * Ku, axis=0) / (jnp.sum(U * Mu, axis=0) + 1e-12)
         res = jnp.sum((Ku - Mu * lam[None, :]) ** 2) / (n * k)
         G = hdot(U.T, Mu)

@@ -79,9 +79,6 @@ def solve_eikonal(
     update runs inside the scan step under `lax.cond`, so fusion is
     preserved.
     """
-    import eigenpinns_tpu
-
-    eigenpinns_tpu.warmup_transfer_async()
     enc = jnp.asarray(encodings, jnp.float32)
     faces = jnp.asarray(np.asarray(mesh.faces, np.int32))
     Bs = jnp.asarray(gradient_norm_operator(mesh.verts, mesh.faces),
@@ -122,7 +119,7 @@ def solve_eikonal(
         trace is the batch-mean of squared per-example parameter
         gradients (sum-convention traces would leave a residual
         n_data/element_batch imbalance in the balanced gradient-flow
-        rates — ADVICE r4)."""
+        rates)."""
 
         def sq_sum(tree):
             return sum(jnp.sum(g**2)

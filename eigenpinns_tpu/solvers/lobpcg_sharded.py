@@ -80,10 +80,8 @@ def lobpcg_sharded(
     large k. Returns (eigenvalues (k,), eigenvectors (n, k) in the
     caller's vertex order, residual_norms (k,)).
     """
-    import eigenpinns_tpu
     from eigenpinns_tpu.solvers.lobpcg import lobpcg, lobpcg_blocked
 
-    eigenpinns_tpu.warmup_transfer_async()
     prob = problem if problem is not None else prepare_sharded_problem(
         K, M, X=X, mesh=mesh, n_devices=n_devices,
         max_bandwidth=max_bandwidth, window=window)

@@ -16,7 +16,7 @@ which is exactly the layout used:
     jointly sharded, no device idles while any level trains;
   * per-level K/M/graph SpMMs ride the halo-banded sharded kernels
     (parallel/sharded_banded.py: two (B, k) ppermutes over ICI + a
-    shard-local MXU banded kernel, scatter-free VJP) with a per-level
+    shard-local banded product, scatter-free VJP) with a per-level
     RCM order; levels whose post-RCM stencil cannot satisfy the
     one-neighbor halo fall back to an all_gather ELL path;
   * the GNN corrector forward is applied PER LEVEL — mathematically
@@ -144,7 +144,7 @@ def build_sharded_multigrid_loop(h, cfg, mesh, model, feats, U_base,
     n_levels = h.n_levels
     shard = NamedSharding(mesh, P("data"))
 
-    levels: list[dict] = []      # static per-level: closures + sizes
+    levels: list[dict] = []      # static per-level sizes
     data_levels: list[dict] = []  # traced per-level arrays
 
     perms = []
@@ -200,7 +200,7 @@ def build_sharded_multigrid_loop(h, cfg, mesh, model, feats, U_base,
         if (M_sp - sp.diags(M_sp.diagonal())).nnz == 0:
             d = np.zeros(n_pad, np.float32)
             d[:n_l] = M_sp.diagonal()[perm]
-            d_sh = jax.device_put(jnp.asarray(d), shard)
+            d_sh = jax.device_put((d), shard)
 
             def spM(u, _d=d_sh):
                 return _d[:, None] * u
@@ -213,14 +213,7 @@ def build_sharded_multigrid_loop(h, cfg, mesh, model, feats, U_base,
         dM = np.zeros(n_pad, np.float32)
         dM[:n_l] = M_sp.diagonal()[perm]
 
-        levels.append({
-            "n": n_l, "n_pad": n_pad, "per": per,
-            "K": FunctionOperator(spK, jax.device_put(jnp.asarray(dK),
-                                                      shard)),
-            "M": FunctionOperator(spM, jax.device_put(jnp.asarray(dM),
-                                                      shard)),
-            "G": FunctionOperator(spG, None),
-        })
+        levels.append({"n": n_l, "n_pad": n_pad, "per": per})
 
         # Re-layout this level's segment of the canonical arrays.
         f_l = np.asarray(feats[off:off + n_l])[perm]
@@ -231,10 +224,17 @@ def build_sharded_multigrid_loop(h, cfg, mesh, model, feats, U_base,
         u_p[:n_l] = u_l
         mask = np.zeros((n_pad, 1), np.float32)
         mask[:n_l] = 1.0
+        # The operators are traced data, not closure constants: a
+        # 300k-node level's band does not fit in an executable.
         data_levels.append({
-            "feats": jax.device_put(jnp.asarray(f_p), shard),
-            "U_base": jax.device_put(jnp.asarray(u_p), shard),
-            "mask": jax.device_put(jnp.asarray(mask), shard),
+            "K": FunctionOperator(spK, jax.device_put((dK),
+                                                      shard)),
+            "M": FunctionOperator(spM, jax.device_put((dM),
+                                                      shard)),
+            "G": FunctionOperator(spG, None),
+            "feats": jax.device_put((f_p), shard),
+            "U_base": jax.device_put((u_p), shard),
+            "mask": jax.device_put((mask), shard),
         })
 
     # Prolongation transposes between consecutive levels, in the new
@@ -262,14 +262,14 @@ def build_sharded_multigrid_loop(h, cfg, mesh, model, feats, U_base,
         lam_levels = []
         U_slices = []
         for i, (lv, d) in enumerate(zip(levels, data["levels"])):
-            corr_raw = model.apply(params, d["feats"], lv["G"])
+            corr_raw = model.apply(params, d["feats"], d["G"])
             U_l = (d["U_base"]
                    + cfg.corrector_scale * ramp * corr_raw * d["mask"])
             if cfg.normalize_in_loss:
-                U_l = m_normalize_columns(U_l, lv["M"])
+                U_l = m_normalize_columns(U_l, d["M"])
             U_slices.append(U_l)
             lam_l, res_l, orth_l = rayleigh_residual_orth(
-                U_l, lv["K"], lv["M"])
+                U_l, d["K"], d["M"])
             # jnp.mean ran over padded rows; correct to the true-n mean.
             res_l = res_l * (lv["n_pad"] / lv["n"])
             lam_levels.append(lam_l)
@@ -284,7 +284,7 @@ def build_sharded_multigrid_loop(h, cfg, mesh, model, feats, U_base,
             if cfg.w_zero_mean > 0:
                 loss_res = loss_res + (cfg.w_zero_mean
                                        / cfg.weight_residual
-                                       ) * zero_mean(U_l, lv["M"])
+                                       ) * zero_mean(U_l, d["M"])
         lam0 = lam_levels[0]
         loss_trace = trace_loss(lam0)
         loss_order = ordering(lam0)

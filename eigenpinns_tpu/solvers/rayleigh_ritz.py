@@ -2,7 +2,7 @@
 
 The reference round-trips every Rayleigh-Ritz through CPU LAPACK
 (`scipy.linalg.eigh(A, B)` at `src/multigrid_model.py:386-408`). Here the
-k x k problem stays on the TPU: generalized eigh via Cholesky (or
+k x k problem stays on the device: generalized eigh via Cholesky (or
 spectral-filtered whitening when B may be near-singular) + jnp.linalg.eigh.
 """
 

@@ -13,13 +13,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, NamedTuple, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 
 from eigenpinns_tpu.models.mlp import MLP
+from eigenpinns_tpu.models.nn import Module
 from eigenpinns_tpu.operators.schrodinger import (
     mc_inner,
     mc_norm_sq,
@@ -28,7 +28,8 @@ from eigenpinns_tpu.operators.schrodinger import (
 from eigenpinns_tpu.train.loop import run_scan_loop
 
 
-class SchrodingerMode(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class SchrodingerMode(Module):
     """u(x) = g(x) * NN([x, lambda]) with trainable lambda >= 0."""
 
     hidden: Sequence[int]
@@ -36,16 +37,17 @@ class SchrodingerMode(nn.Module):
     lambda_init: float = 1.0
     activation: str = "tanh"
 
-    @nn.compact
-    def __call__(self, x):
-        raw = self.param(
+    def forward(self, scope, x):
+        raw = scope.param(
             "lambda_raw",
-            lambda key, shape: jnp.full(shape, self.lambda_init), (1,))
+            lambda key, shape, dtype: jnp.full(shape, self.lambda_init, dtype),
+            (1,))
         lam = jnp.abs(raw)[0]
         n = x.shape[0]
         feats = jnp.concatenate(
             [x, jnp.full((n, 1), 1.0, dtype=x.dtype) * lam], axis=1)
-        vals = MLP(tuple(self.hidden), 1, activation=self.activation)(feats)
+        vals = MLP(tuple(self.hidden), 1, activation=self.activation)(
+            scope, feats)
         g = jnp.reshape(self.window(x), (n, 1))
         return (g * vals)[:, 0], lam
 
@@ -60,7 +62,7 @@ class SchrodingerResult:
     eigenvalues: np.ndarray
     mode_params: list            # per-mode trained params
     histories: list
-    model: Any                   # the flax module (shared architecture)
+    model: Any                   # the module (shared architecture)
 
     def eval_mode(self, i: int, x):
         u, _ = self.model.apply(self.mode_params[i], jnp.asarray(x))
@@ -94,9 +96,6 @@ def solve_schrodinger(
     uniform Monte-Carlo quadrature set (the normalization/deflation
     integrals are MC either way).
     """
-    import eigenpinns_tpu
-
-    eigenpinns_tpu.warmup_transfer_async()
     dom = np.asarray(domain, dtype=np.float64)
     if dom.ndim == 1:
         dom = dom.reshape(1, 2)
@@ -179,7 +178,7 @@ def solve_schrodinger(
             return SchrState(params, opt_state), metrics
 
         # Full-f32 matmuls: the residual is a SECOND derivative of the
-        # network — with the TPU's default bf16 matmul rounding the
+        # network — with default-precision matmul rounding (TF32 or bf16) the
         # jvp-of-jvp chain is noise-floored and lambda stalls short of the
         # true eigenvalue (observed: well mode 2 at 17.6 vs 19.74).
         with jax.default_matmul_precision("highest"):

@@ -1,6 +1,6 @@
 """Smoothers and coarse-grid correction for the multigrid hierarchy.
 
-TPU-first ports of capability from `utils.jacobi_smooth`
+Device ports of capability from `utils.jacobi_smooth`
 (src/utils.py:220-232) and `MultigridGNN.apply_coarse_grid_correction`
 (src/multigrid_model.py:410-450): fixed-iteration-count linear iterations
 expressed as lax.fori_loop over fused SpMM — no host round-trips.
@@ -93,7 +93,7 @@ def cg_solve(A, B_rhs: jax.Array, n_iters: int = 50,
     Used for the coarse solve in CGC when the coarse operator is kept
     sparse (the reference densifies and LU-solves it instead,
     src/multigrid_model.py:443-444 — O(n^3) and singular-prone; CG with a
-    small ridge is the TPU-native equivalent).
+    small ridge is the device equivalent).
     """
     def matvec(X):
         return spmm(A, X) + ridge * X
@@ -122,7 +122,7 @@ def coarse_grid_correction(U_fine, K_fine, M_fine, K_coarse, P, Pt,
                            ridge: float = 1e-6, cg_iters: int = 100):
     """One multigrid CGC step: U - P (K_c + ridge I)^{-1} P^T (K U - M U L).
 
-    Parity with src/multigrid_model.py:410-450, with two TPU-native
+    Parity with src/multigrid_model.py:410-450, with two device-side
     substitutions: the fine-level eigenvalue estimates come from on-device
     Rayleigh-Ritz, and the coarse solve is ridge-regularized CG instead of
     a dense LU of the (singular, nullspace-of-constants) coarse stiffness.

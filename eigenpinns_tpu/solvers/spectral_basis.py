@@ -3,21 +3,17 @@
 The production path for BASELINE config 5 ("1M-vertex mesh spectral
 basis, 50 deflated modes"): everything the reference would do with
 robust_laplacian + ARPACK (delta_pinns_validation notebooks' `eigsh`
-calls on the full operator) but sized for 10^6 nodes on one TPU chip:
+calls on the full operator) but sized for 10^6 nodes on one device:
 
   1. native C++ point-cloud Laplacian (geometry/point_cloud.py),
   2. coarse voxel subset -> host eigsh warm start -> kNN prolongation,
-  3. a tiled MXU device operator — strip-BSR (sparse/bsr.py) or
+  3. a tiled device operator — strip-BSR (sparse/bsr.py) or
      cluster-ordered SplitBanded (sparse/split.py); see
      `operator_format` below,
   4. blocked deflated LOBPCG (solvers/lobpcg.lobpcg_blocked): sweeps of
      ~16 modes, each M-orthogonally deflated against all converged ones.
 
-Measured (v5e single chip, 1M nodes, 7.2M-nnz Laplacian, k=50, blocks
-of 16+4 guard, tol 2e-4): solve 193 s vs 371 s for host shift-invert
-eigsh on the same operator (1.9x, and the host solve needs a sparse
-LU of the full operator); max rel eigenvalue err 3.1e-4, mean 7.2e-5
-vs that oracle over modes 1-49.
+Solve time and accuracy on the H100 at 1M nodes: not measured.
 
 Replaces: the reference's ARPACK-on-full-operator pattern
 (src/utils.py:171-178 `compute_eigenvalues`), which at 1M nodes needs a
@@ -66,26 +62,16 @@ def spectral_basis(
 
     `operator_format`: 'bsr' (strip-BSR, default) or 'split'
     (cluster-ordered banded core + gather remainder; `window` applies to
-    this format only). Measured at 1M x k=50 on one v5e, same accuracy
-    (3.1e-4 max rel err vs host eigsh, which itself takes 371 s):
-    'bsr' solves in **104.5 s** once its kernels are compile-cached
-    (first-ever run at a given shape pays a heavy Mosaic compile —
-    cached persistently across processes via the compile cache that
-    warmup enables) and its host-side build is ~20 s vs 134 s for the
-    full 'split' build (cluster ordering itself is 13 s; the rest is
-    the scipy permutation + banding — round 3, with device-side band
-    assembly); 'split' solves in 193 s with no big compile and lower
-    HBM (relevant only if ~9 GB residency is tight).
+    this format only). 'split' needs a cluster ordering on the host
+    and holds less device memory; which format solves faster on the
+    H100 is not measured.
 
-    `operator_precision`: MXU passes for the solver's K-applies —
-    'highest' (default; f32, 6 bf16 passes) or 'high' (bf16x3 split
-    product; the LOBPCG orthogonalization/Rayleigh-Ritz arithmetic
-    stays f32-HIGHEST regardless). Measured at 1M x 50, tol 2e-4:
-    'high' solves only ~5% faster (98.5 s vs 103.3 s — the kernel is
-    gather-bound, not MXU-pass-bound) and the residual stalls at the
-    operator's bf16x3 noise floor: max rel eigenvalue err 1.3e-3 vs
-    3.1e-4. Hence the conservative default; 'high' is for tol >= 1e-2
-    screening passes only.
+    `operator_precision`: precision of the solver's K-applies
+    (sparse.ops.operator_dot) — 'highest' (default; full f32) or 'high'
+    (TF32 on the H100, ~3e-4 relative error per product; the LOBPCG
+    orthogonalization/Rayleigh-Ritz arithmetic stays f32-HIGHEST
+    regardless). The residual cannot fall below the operator's own
+    rounding, so 'high' is for tol >= 1e-2 screening passes only.
 
     `n_devices`/`mesh`: run the blocked solve node-sharded over a
     `jax.sharding.Mesh` (solvers/lobpcg_sharded.py — halo-banded /
@@ -96,7 +82,6 @@ def spectral_basis(
     import jax
     import jax.numpy as jnp
 
-    import eigenpinns_tpu
     from eigenpinns_tpu.geometry import point_cloud_laplacian
     from eigenpinns_tpu.sampling.knn import prolongation_matrix
     from eigenpinns_tpu.sampling.samplers import voxel_levels
@@ -104,7 +89,6 @@ def spectral_basis(
     from eigenpinns_tpu.solvers.oracle import eigsh_smallest
     from eigenpinns_tpu.sparse import Diagonal, SplitBanded
 
-    eigenpinns_tpu.warmup_transfer_async()  # + persistent compile cache
     timings = {}
     n = X.shape[0]
 
@@ -222,7 +206,6 @@ def spectral_basis_family(
     import jax
     import jax.numpy as jnp
 
-    import eigenpinns_tpu
     from eigenpinns_tpu.geometry import point_cloud_laplacian
     from eigenpinns_tpu.sampling.knn import prolongation_matrix
     from eigenpinns_tpu.sampling.samplers import voxel_levels
@@ -230,8 +213,6 @@ def spectral_basis_family(
     from eigenpinns_tpu.solvers.oracle import eigsh_smallest
     from eigenpinns_tpu.sparse import Diagonal
     from eigenpinns_tpu.sparse.bsr import BSRTile, _round_up
-
-    eigenpinns_tpu.warmup_transfer_async()  # + persistent compile cache
 
     # Pass 1 (host): Laplacians + the family's common padded shape.
     probs = []

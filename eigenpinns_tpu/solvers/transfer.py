@@ -82,9 +82,6 @@ def train_per_level(
     seed: int = 0,
 ) -> TransferResult:
     """Refine eigenvectors level-by-level with a shared corrector."""
-    import eigenpinns_tpu
-
-    eigenpinns_tpu.warmup_transfer_async()
     freeze_schedule = freeze_schedule or {}
     model = SimpleCorrector(tuple(hidden), n_modes)
 

@@ -85,9 +85,6 @@ def hierarchical_eigensolve(
     matrix hierarchy with neural coarse->fine upscaling."""
     import scipy.sparse as sp
 
-    import eigenpinns_tpu
-
-    eigenpinns_tpu.warmup_transfer_async()
     n = K.shape[0]
     K = K.tocsr() if sp.issparse(K) else sp.csr_matrix(K)
     M = M.tocsr() if sp.issparse(M) else sp.csr_matrix(M)

@@ -3,18 +3,11 @@ from eigenpinns_tpu.sparse.banded import (
     BandedELL,
     banded_spmm,
     banded_spmm_gram,
-    banded_spmm_gram_pallas,
-    banded_spmm_gram_reference,
-    banded_spmm_reference,
-    banded_spmm_pallas,
 )
 from eigenpinns_tpu.sparse.rolling import (
     RollingBanded,
     rolling_spmm,
     rolling_spmm_gram,
-    rolling_spmm_pallas,
-    rolling_spmm_gram_pallas,
-    rolling_spmm_reference,
 )
 from eigenpinns_tpu.sparse.split import (
     SplitBanded,
@@ -27,11 +20,10 @@ from eigenpinns_tpu.sparse.bsr import (
     BSRTile,
     bsr_spmm,
     bsr_spmm_gram,
-    bsr_spmm_pallas,
-    bsr_spmm_reference,
 )
 from eigenpinns_tpu.sparse.ops import (
     hdot,
+    operator_dot,
     spmm,
     spmm_gram,
     spmv,
@@ -50,16 +42,12 @@ from eigenpinns_tpu.sparse.ops import (
 
 __all__ = [
     "SparseELL", "Diagonal", "as_operator",
-    "BandedELL", "banded_spmm", "banded_spmm_reference", "banded_spmm_pallas",
-    "banded_spmm_gram", "banded_spmm_gram_pallas", "banded_spmm_gram_reference",
+    "BandedELL", "banded_spmm", "banded_spmm_gram",
     "RollingBanded", "rolling_spmm", "rolling_spmm_gram",
-    "rolling_spmm_pallas", "rolling_spmm_gram_pallas",
-    "rolling_spmm_reference",
     "SplitBanded", "split_spmm", "split_spmm_gram", "spatial_cluster_order",
     "hilbert_order",
-    "BSRTile", "bsr_spmm", "bsr_spmm_gram", "bsr_spmm_pallas",
-    "bsr_spmm_reference",
-    "hdot", "spmm", "spmm_gram", "spmv", "gram", "m_gram", "rayleigh_quotients",
+    "BSRTile", "bsr_spmm", "bsr_spmm_gram",
+    "hdot", "operator_dot", "spmm", "spmm_gram", "spmv", "gram", "m_gram", "rayleigh_quotients",
     "m_normalize_columns", "normalize_columns", "residual",
     "block_diag_ell", "gcn_normalized_adjacency", "neighbor_mean",
     "neighbor_mean_operator", "neighbor_mean_scipy",

@@ -1,18 +1,12 @@
-"""Chunk-compact (strip-BSR) MXU SpMM: matmul only the nonempty
-128x128 tiles.
+"""Chunk-compact tile-sparse (strip-BSR) SpMM: multiply only the
+nonempty 128x128 tiles.
 
-The banded formats (banded.py full-window, rolling.py ring-buffer) are
-COMPUTE-bound at scale, not bandwidth-bound: 2/3 of the band arithmetic
-multiplies zeros — per 128-row tile of the 300k cloud operator only a
-mean of 10.2 (max 17) of the ~30 band-covered 128-wide column tiles hold
-any nonzeros.
-
-Round-2 shipped a fixed-width strip: every row tile stored max-W slots,
-so both the strip read AND the per-tile U gather paid the MAX width
-(2.61 + 2.61 GB at 300k). This version stores the nonempty tiles
-RAGGED — padded only up to a multiple of `chunk` (C, default 4) per row
-tile — which cuts HBM traffic to the mean width (3.6 GB total at 300k,
-C=4) and the MXU work with it (115 vs 167 GFLOP):
+The banded formats (banded.py full-window, rolling.py uniform window)
+multiply every tile inside the band, and about 2/3 of that arithmetic
+multiplies zeros: per 128-row tile of the 300k cloud operator only a mean
+of 10.2 (max 17) of the ~30 band-covered 128-wide column tiles hold any
+nonzeros. This format stores the nonempty tiles RAGGED — padded only up
+to a multiple of `chunk` (C) per row tile:
 
   * `data` is (S*T, C*T): chunk s holds C horizontally-stacked 128x128
     tiles of ONE row tile; a row tile with nw nonempty tiles owns
@@ -20,58 +14,29 @@ C=4) and the MXU work with it (115 vs 167 GFLOP):
   * `cid` (S, C) int32 maps chunk slot j -> column tile id (pad slots
     repeat a valid id; their zero tiles contribute nothing).
   * `rowid` (S,) int32, NONDECREASING: the row tile each chunk belongs
-    to. The kernel runs one grid step per CHUNK; the output BlockSpec
-    indexes by rowid[s] (scalar prefetch), so consecutive chunks of one
-    row tile ACCUMULATE into the same resident VMEM output block and
-    Pallas flushes it when rowid changes.
-  * per chunk: a burst of C gather DMAs assembles the (C*T, k) U
-    block in VMEM through a depth-D prefetch ring (default 4: the
-    per-chunk matmul is shorter than the gather burst, so plain double
-    buffering leaves the MXU waiting) while earlier chunks' single
-    (T, C*T) x (C*T, k) MXU matmuls run.
+    to.
 
-GROUPED-GATHER variant (the default at static layout, `group=32`):
-adjacent row tiles under RCM share ~all of their column windows, so the
-per-chunk burst re-fetches every shared U tile once per referencing
-chunk. `bsr_spmm_pallas_grouped` gathers the UNION of G row tiles'
-column tiles once per group (double-buffered across groups) and the
-per-chunk matmul reads the union buffer at lcid offsets. The grid-step
-count, not HBM traffic, turned out to be the second-order bound — the
-grouped kernel makes fatter chunks (C=8 default, up from 4) affordable
-because pad slots cost only strip bytes + MXU zeros, not extra
-gathers. 300k x 128 A/B (2026-08-17, .scratch_ab_chunk*.py): burst
-C=4: 8.36 ms f32-HIGHEST / 6.37 bf16 -> grouped C=8 G=32: 7.90 / 5.59
-(C=16 G=32 reaches bf16 5.22 but f32 8.18 — HIGHEST pays 6 MXU passes
-per pad zero, so solver-grade prefers the thinner chunk).
+The SpMM gathers each chunk's (C*T, k) block of U, multiplies it by the
+chunk's (T, C*T) strip in one batched product, and segment-sums the
+per-chunk results by row tile. Any sparsity pattern tiles (no bandwidth
+cap).
 
 Replaces the reference's torch.sparse COO SpMV hot op
-(src/multigrid_model.py:306-322) at any N; supersedes rolling.py as
-the preferred large-N operator format for wide k (the rolling band's
-delta-only U traffic still wins for k <= 32 training).
-
-Same precision contract as rolling.py: 'highest' (f32, 6 bf16 MXU
-passes) or 'high' (explicit bf16x3 split product, ~1e-6 rel err) via
-with_precision(); 'bf16' stores half-size strips (training-loss grade).
-Grams/Rayleigh quotients stay f32-HIGHEST.
+(src/multigrid_model.py:306-322). Same precision names as rolling.py
+(sparse.ops.operator_dot) via with_precision(); Grams/Rayleigh quotients
+stay f32-HIGHEST.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Any
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from eigenpinns_tpu.sparse.banded import _round_up
-
-# Gather-ring depth default. Read ONCE at import: the value is baked
-# into traced kernels at trace time, so a mid-process env change would
-# silently not apply to already-jit-cached shapes (ADVICE r3). For
-# in-process A/Bs pass bsr_spmm_pallas(..., prefetch_depth=...).
-_PREFETCH_DEPTH = int(os.environ.get("EIGENPINNS_BSR_PREFETCH_DEPTH", "4"))
+from eigenpinns_tpu.sparse.ops import operator_dot
 
 
 class _Static:
@@ -105,9 +70,9 @@ class BSRTile:
     diag:  (n,) float — the operator diagonal (solver preconditioners)
 
     data and diag are pytree CHILDREN (runtime operands); the integer
-    layout rides the treedef by default (static_layout) so Mosaic
-    specializes the gather-DMA addressing, or travels as traced operands
-    (static_layout=False) so same-shape operators share one executable.
+    layout rides the treedef by default (static_layout) as compile-time
+    constants, or travels as traced operands (static_layout=False) so
+    same-shape operators share one executable.
     """
 
     data: Any
@@ -121,38 +86,19 @@ class BSRTile:
     transpose_bsr: Any = None     # BSRTile | None (None = symmetric)
     mxu_precision: str = "highest"
     # True (default): cid/rowid/nw ride the treedef as compile-time
-    # constants — Mosaic specializes the gather-DMA addressing. False:
-    # they are traced operands, so SAME-SHAPE operators share one
-    # compiled executable — what spectral_basis_family needs to amortize
-    # one compile across a padded mesh family. (The output index map
-    # always reads rowid through scalar prefetch, so both modes support
-    # the accumulating kernel.)
+    # constants. False: they are traced operands, so SAME-SHAPE operators
+    # share one compiled executable — what spectral_basis_family needs
+    # to amortize one compile across a padded mesh family.
     static_layout: bool = True
-    # Grouped-gather tables (static_layout only; None = ungrouped
-    # kernel). Adjacent row tiles share most of their column windows
-    # under RCM ordering, so the per-chunk U gather re-fetched every
-    # shared tile once per referencing row tile (~W x the U bytes, the
-    # dominant HBM traffic at wide k). Grouping G row tiles gathers the
-    # UNION of their column tiles once into VMEM:
-    #   gcid (n_groups, C_u) int32 — union column-tile ids (pads repeat
-    #        a valid id; the duplicate fetch is harmless)
-    #   lcid (S, C) int32 — chunk slot -> slot in its group's union
-    #   gid  (S,) int32 nondecreasing — chunk -> group (= rowid // G)
-    gcid: Any = None
-    lcid: Any = None
-    gid: Any = None
 
     def tree_flatten(self):
         has_t = self.transpose_bsr is not None
         if self.static_layout:
             children = (self.data, self.diag) + (
                 (self.transpose_bsr,) if has_t else ())
-            grp = (None if self.gcid is None else
-                   (_Static(self.gcid), _Static(self.lcid),
-                    _Static(self.gid)))
             return children, (True, _Static(self.cid), _Static(self.rowid),
                               _Static(self.nw), self.n, self.n_cols,
-                              self.tile, has_t, self.mxu_precision, grp)
+                              self.tile, has_t, self.mxu_precision)
         children = (self.data, self.cid, self.rowid, self.nw, self.diag) + (
             (self.transpose_bsr,) if has_t else ())
         return children, (False, self.n, self.n_cols, self.tile, has_t,
@@ -161,12 +107,10 @@ class BSRTile:
     @classmethod
     def tree_unflatten(cls, aux, children):
         if aux[0]:
-            _, cid, rowid, nw, n, n_cols, tile, has_t, prec, grp = aux
+            _, cid, rowid, nw, n, n_cols, tile, has_t, prec = aux
             t = children[2] if has_t else None
-            g = ((None, None, None) if grp is None
-                 else (grp[0].a, grp[1].a, grp[2].a))
             return cls(children[0], cid.a, rowid.a, nw.a, children[1],
-                       n, n_cols, tile, t, prec, True, *g)
+                       n, n_cols, tile, t, prec, True)
         _, n, n_cols, tile, has_t, prec = aux
         t = children[5] if has_t else None
         return cls(children[0], children[1], children[2], children[3],
@@ -183,7 +127,7 @@ class BSRTile:
             data = data.astype(jnp.bfloat16)
         elif precision != "bf16" and data.dtype == jnp.bfloat16:
             # See rolling.py: solver-grade precision on bf16 strips
-            # upcasts so the kernels never mix bf16 x f32 under HIGHEST.
+            # restores f32 storage.
             data = data.astype(jnp.float32)
         return dataclasses.replace(self, data=data,
                                    mxu_precision=precision,
@@ -216,12 +160,6 @@ class BSRTile:
         """Real (unpadded) nonempty tiles."""
         return int(self.nw.sum())
 
-    @property
-    def _precision_enum(self):
-        return (jax.lax.Precision.HIGHEST
-                if self.mxu_precision == "highest"
-                else jax.lax.Precision.HIGH)
-
     def diagonal(self) -> jax.Array:
         return jnp.asarray(self.diag)
 
@@ -232,8 +170,7 @@ class BSRTile:
                    pad_chunks_to: int | None = None,
                    perm: np.ndarray | None = None,
                    static_layout: bool = True,
-                   chunk: int = 8,
-                   group: int = 32):
+                   chunk: int = 8):
         """Convert scipy sparse; returns (op, perm) like the other
         formats. No bandwidth cap — any sparsity pattern tiles.
 
@@ -242,14 +179,7 @@ class BSRTile:
         shape share a single compiled executable for every solver
         program (jit caches on shapes); pad chunks are zero tiles
         accumulated into the last row tile. `perm` supplies a
-        precomputed ordering (skips the RCM pass on rebuilds).
-
-        `group`: row tiles per gather group (grouped-union U fetch, see
-        the gcid field comment; 0 disables). Built only for
-        static_layout — traced-layout family members would need a
-        family-common union width, which the family builder does not
-        coordinate. Groups whose union exceeds 64 column tiles fall out
-        of the VMEM budget; G is halved adaptively until it fits."""
+        precomputed ordering (skips the RCM pass on rebuilds)."""
         A = A.tocsr()
         A.sum_duplicates()
         n, n_cols = A.shape
@@ -319,33 +249,6 @@ class BSRTile:
         cid[:] = fallback[rowid][:, None]
         cid[t_chunk, t_slot] = t_ct.astype(np.int32)
 
-        # Grouped-gather tables: union of the group's column-tile ids,
-        # gathered once per group instead of once per referencing chunk
-        # slot (the RCM band makes adjacent row tiles' windows overlap
-        # ~fully, so the union is ~W + G - 1 tiles vs G*W fetches).
-        gcid = lcid = gid = None
-        G = int(group)
-        if static_layout and G > 0:
-            while True:
-                gid_try = (rowid // max(G, 1)).astype(np.int32)
-                n_groups = int(gid_try[-1]) + 1 if S else 1
-                unions = [np.unique(cid[gid_try == g])
-                          for g in range(n_groups)]
-                C_u = max((u.shape[0] for u in unions), default=1)
-                if C_u <= 64 or G == 1:
-                    break
-                G //= 2
-            if C_u <= 64:
-                gid = gid_try
-                gcid = np.zeros((n_groups, C_u), np.int32)
-                lcid = np.zeros((S, C), np.int32)
-                for g, u in enumerate(unions):
-                    gcid[g, :u.shape[0]] = u
-                    gcid[g, u.shape[0]:] = u[0]     # pad: harmless refetch
-                    sel = gid == g
-                    lcid[sel] = np.searchsorted(
-                        u, cid[sel]).astype(np.int32)
-
         np_dtype = np.dtype(jnp.dtype(dtype).name)
         slot_of_entry = np.searchsorted(tile_key, key_s)
         lr = (coo.row[order] % T).astype(np.int64)
@@ -357,8 +260,7 @@ class BSRTile:
         if (S * T * C * T * np_dtype.itemsize
                 >= _rolling._DEVICE_BUILD_MIN_BYTES):
             # Device-side assembly: upload nnz triplets (~MBs) instead
-            # of the materialized strips (~GBs) — the host->device link
-            # dominates the build otherwise (see rolling._scatter_band).
+            # of the materialized strips (~GBs), see rolling._scatter_band.
             data = _rolling._scatter_band((S * T, C * T), dtype,
                                  d_rows.astype(np.int32),
                                  d_cols.astype(np.int32),
@@ -388,10 +290,10 @@ class BSRTile:
                 transpose = cls.from_scipy(
                     Ap.T.tocsr(), dtype=dtype, tile=tile, reorder=False,
                     with_transpose=False, static_layout=static_layout,
-                    pad_rows_to=pad_rows_to, chunk=C, group=group)[0]
+                    pad_rows_to=pad_rows_to, chunk=C)[0]
 
         op = cls(jnp.asarray(data), cid, rowid, nw, diag, n, n_cols, T,
-                 transpose, "highest", static_layout, gcid, lcid, gid)
+                 transpose, "highest", static_layout)
         return op, perm
 
     def pad_u(self, U: jax.Array) -> jax.Array:
@@ -399,323 +301,34 @@ class BSRTile:
         return jnp.pad(U, ((0, target - U.shape[0]), (0, 0)))
 
 
-def bsr_spmm_reference(A: BSRTile, U: jax.Array) -> jax.Array:
-    """Pure-jnp oracle + CPU fallback: per-chunk matmul against a
-    gathered U block, segment-summed by row tile."""
+def _bsr_matmul(A: BSRTile, U: jax.Array) -> jax.Array:
+    """Per-chunk product against the gathered U block, segment-summed by
+    row tile."""
     T, C = A.tile, A.chunk
     S = A.n_chunks
     k = U.shape[1]
     Up = A.pad_u(U).reshape(-1, T, k)                    # (n_ct, T, k)
     Ustrips = Up[jnp.asarray(A.cid)].reshape(S, C * T, k)
     strips = A.data.reshape(S, T, C * T)
-    prec = A._precision_enum
     partial = jax.vmap(
-        lambda s, u: jnp.dot(s, u, precision=prec,
-                             preferred_element_type=jnp.float32))(
+        lambda s, u: operator_dot(s, u, A.mxu_precision))(
         strips, Ustrips)                                 # (S, T, k)
     out = jax.ops.segment_sum(partial, jnp.asarray(A.rowid),
                               num_segments=A.n_row_tiles)
     return out.reshape(-1, k)[: A.n].astype(U.dtype)
 
 
-def bsr_spmm_pallas_grouped(A: BSRTile, U: jax.Array,
-                            interpret: bool = False) -> jax.Array:
-    """Grouped-union gather variant: one grid step per chunk, but U
-    tiles arrive via per-GROUP union DMAs (double-buffered across
-    groups) instead of per-chunk bursts — each shared column tile is
-    fetched once per G row tiles instead of once per referencing chunk
-    slot, cutting the dominant HBM traffic by ~G*W/(W+G). The per-chunk
-    matmul splits into C (T, T) x (T, k) dots reading the union buffer
-    at lcid-offsets, accumulated straight into the rowid-indexed
-    resident output block; PAD slots (real slots are a per-chunk
-    prefix) are SKIPPED via a prefetched valid-count — at f32-HIGHEST
-    every pad zero would cost 6 MXU passes (~26% of the chunk=8 strip).
-    Entering group g issues group g+1's union gathers, which then have
-    a full group of matmuls to land."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    T, C = A.tile, A.chunk
-    k_orig = U.shape[1]
-    k = _round_up(k_orig, 128)
-    if k != k_orig:
-        U = jnp.pad(U, ((0, 0), (0, k - k_orig)))
-    Up = A.pad_u(U)
-    S = A.n_chunks
-    n_rt = A.n_row_tiles
-    C_u = A.gcid.shape[1]
-    # 1D scalar prefetch (2D SMEM operands pad the minor dim to 128).
-    gcid = jnp.asarray(A.gcid).reshape(-1).astype(jnp.int32)
-    lcid = jnp.asarray(A.lcid).reshape(-1).astype(jnp.int32)
-    rowid = jnp.asarray(A.rowid).astype(jnp.int32)
-    gid = jnp.asarray(A.gid).astype(jnp.int32)
-    n_groups = A.gcid.shape[0]
-    # Real (non-pad) slots per chunk: slots fill each row tile's chunks
-    # in order, so chunk s of row tile r holds
-    # clip(nw[r] - (s - chunk_start[r]) * C, 0, C) real slots.
-    rowid_np = np.asarray(A.rowid)
-    nw_np = np.asarray(A.nw)
-    first_chunk_of_row = np.concatenate(
-        ([0], np.cumsum(np.bincount(rowid_np,
-                                    minlength=n_rt))))[:-1]
-    slot0 = (np.arange(S) - first_chunk_of_row[rowid_np]) * C
-    nv = np.clip(nw_np[rowid_np] - slot0, 0, C).astype(np.int32)
-    nv = jnp.asarray(nv)
-
-    def kernel(gcid_ref, lcid_ref, rowid_ref, gid_ref, nv_ref, strip_ref,
-               u_ref, out_ref, ubuf, sem):
-        s = pl.program_id(0)
-        g = gid_ref[s]
-
-        def union_copies(slot, gg):
-            return [pltpu.make_async_copy(
-                u_ref.at[pl.ds(gcid_ref[gg * C_u + j] * T, T), :],
-                ubuf.at[slot, pl.ds(j * T, T), :],
-                sem.at[slot, j]) for j in range(C_u)]
-
-        first_of_group = jnp.logical_or(
-            s == 0, gid_ref[jnp.maximum(s - 1, 0)] != g)
-
-        @pl.when(s == 0)
-        def _():
-            for c in union_copies(0, 0):
-                c.start()
-            if n_groups > 1:
-                for c in union_copies(1, 1):
-                    c.start()
-
-        @pl.when(jnp.logical_and(first_of_group,
-                                 jnp.logical_and(s > 0,
-                                                 g + 1 < n_groups)))
-        def _():
-            # Group g-1's compute just released slot (g+1)%2.
-            for c in union_copies((g + 1) % 2, g + 1):
-                c.start()
-
-        @pl.when(first_of_group)
-        def _():
-            for c in union_copies(g % 2, g):
-                c.wait()
-
-        slot = g % 2
-        base = s * C
-
-        def tile_dot(j):
-            u_t = ubuf[slot, pl.ds(lcid_ref[base + j] * T, T), :]
-            a_t = strip_ref[:, j * T:(j + 1) * T]
-            if A.mxu_precision == "highest":
-                return jnp.dot(a_t, u_t,
-                               precision=jax.lax.Precision.HIGHEST,
-                               preferred_element_type=jnp.float32)
-            elif A.mxu_precision == "bf16":
-                return jnp.dot(a_t, u_t.astype(jnp.bfloat16),
-                               preferred_element_type=jnp.float32)
-            ah = a_t.astype(jnp.bfloat16)
-            al = (a_t - ah.astype(jnp.float32)).astype(jnp.bfloat16)
-            uh = u_t.astype(jnp.bfloat16)
-            ul = (u_t - uh.astype(jnp.float32)).astype(jnp.bfloat16)
-            return (jnp.dot(ah, uh, preferred_element_type=jnp.float32)
-                    + jnp.dot(al, uh, preferred_element_type=jnp.float32)
-                    + jnp.dot(ah, ul, preferred_element_type=jnp.float32))
-
-        prev = rowid_ref[jnp.maximum(s - 1, 0)]
-        first = jnp.logical_or(s == 0, rowid_ref[s] != prev)
-
-        @pl.when(first)
-        def _():
-            out_ref[:] = jnp.zeros((T, k), out_ref.dtype)
-
-        n_valid = nv_ref[s]
-        for j in range(C):
-            @pl.when(j < n_valid)
-            def _(j=j):
-                out_ref[:] = out_ref[:] + tile_dot(j).astype(out_ref.dtype)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=5,
-        grid=(S,),
-        in_specs=[
-            pl.BlockSpec((T, C * T), lambda s, *pf: (s, 0)),
-            pl.BlockSpec(memory_space=pltpu.ANY),
-        ],
-        out_specs=pl.BlockSpec((T, k),
-                               lambda s, gcid, lcid, rowid, gid, nv:
-                               (rowid[s], 0)),
-        scratch_shapes=[
-            pltpu.VMEM((2, C_u * T, k), U.dtype),
-            pltpu.SemaphoreType.DMA((2, C_u)),
-        ],
-    )
-    W_out = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_rt * T, k), U.dtype),
-        interpret=interpret,
-    )(gcid, lcid, rowid, gid, nv, A.data, Up)
-    return W_out[: A.n, : k_orig]
-
-
-def bsr_spmm_pallas(A: BSRTile, U: jax.Array,
-                    interpret: bool = False,
-                    prefetch_depth: int | None = None) -> jax.Array:
-    """One grid step per chunk: burst-gather the chunk's U tiles
-    (double-buffered) + one (T, C*T) x (C*T, k) MXU matmul, accumulated
-    into the rowid-indexed output block (resident across the row tile's
-    consecutive chunks).
-
-    `prefetch_depth` selects the gather-ring depth explicitly; None uses
-    the module default `_PREFETCH_DEPTH` (the EIGENPINNS_BSR_PREFETCH_DEPTH
-    env var, read ONCE at import — a later env change cannot silently
-    diverge from already-jit-cached executables; pass the parameter for
-    in-process A/Bs, ADVICE r3)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    T, C = A.tile, A.chunk
-    k_orig = U.shape[1]
-    k = _round_up(k_orig, 128)
-    if k != k_orig:
-        U = jnp.pad(U, ((0, 0), (0, k - k_orig)))
-    Up = A.pad_u(U)
-    S = A.n_chunks
-    n_rt = A.n_row_tiles
-    # 1D: 2D SMEM scalar operands pad their minor dim to 128 and blow
-    # the 1MB SMEM budget at a few thousand chunks.
-    # jnp (not np): with static_layout=False the layout tables are
-    # TRACED operands (spectral_basis_family's shared executable);
-    # np.asarray on a tracer raises TracerArrayConversionError.
-    cid = jnp.asarray(A.cid).reshape(-1).astype(jnp.int32)
-    rowid = jnp.asarray(A.rowid).astype(jnp.int32)
-    # Gather pipelining: the kernel sits at ~0.41 TB/s — half the HBM
-    # roofline — and neither halving bytes (bf16 strips) nor halving
-    # DMA count (a 2-tile coalescing variant, A/B'd 2026-08-17: no
-    # effect, since removed) moves it proportionally. The per-step MXU
-    # matmul (~0.2 us) is SHORTER than the per-step gather burst
-    # (~0.3+ us), so the standard 2-slot double buffer leaves the MXU
-    # waiting on gathers. A deeper prefetch ring (depth D, issue step
-    # s+D-1's burst at step s) gives each burst D-1 matmul-times to
-    # land.
-    D = _PREFETCH_DEPTH if prefetch_depth is None else int(prefetch_depth)
-    D = max(2, min(D, max(S, 2)))
-
-    def kernel(cid_ref, rowid_ref, strip_ref, u_ref, out_ref, ubuf, sem):
-        s = pl.program_id(0)
-        n_s = pl.num_programs(0)
-
-        def copies(slot, ss):
-            return [pltpu.make_async_copy(
-                u_ref.at[pl.ds(cid_ref[ss * C + j] * T, T), :],
-                ubuf.at[slot, pl.ds(j * T, T), :],
-                sem.at[slot, j]) for j in range(C)]
-
-        @pl.when(s == 0)
-        def _():
-            for ss in range(D - 1):
-                for c in copies(ss % D, ss):
-                    c.start()
-
-        @pl.when(s + D - 1 < n_s)
-        def _():
-            for c in copies((s + D - 1) % D, s + D - 1):
-                c.start()
-
-        for c in copies(s % D, s):
-            c.wait()
-
-        if A.mxu_precision == "highest":
-            w = jnp.dot(strip_ref[:], ubuf[s % D],
-                        precision=jax.lax.Precision.HIGHEST,
-                        preferred_element_type=jnp.float32)
-        elif A.mxu_precision == "bf16":
-            # bf16-stored strips: one MXU pass, half the strip bytes.
-            w = jnp.dot(strip_ref[:], ubuf[s % D].astype(jnp.bfloat16),
-                        preferred_element_type=jnp.float32)
-        else:
-            # bf16x3 split product (Mosaic rejects Precision.HIGH inside
-            # kernels): a*u ~ ah uh + al uh + ah ul.
-            a = strip_ref[:]
-            ah = a.astype(jnp.bfloat16)
-            al = (a - ah.astype(jnp.float32)).astype(jnp.bfloat16)
-            uv = ubuf[s % D]
-            uh = uv.astype(jnp.bfloat16)
-            ul = (uv - uh.astype(jnp.float32)).astype(jnp.bfloat16)
-            w = (jnp.dot(ah, uh, preferred_element_type=jnp.float32)
-                 + jnp.dot(al, uh, preferred_element_type=jnp.float32)
-                 + jnp.dot(ah, ul, preferred_element_type=jnp.float32))
-        # First chunk of a row tile overwrites the (possibly stale)
-        # resident block; later chunks accumulate. rowid is
-        # nondecreasing, so the block index map revisits in order.
-        prev = rowid_ref[jnp.maximum(s - 1, 0)]
-        first = jnp.logical_or(s == 0, rowid_ref[s] != prev)
-
-        @pl.when(first)
-        def _():
-            out_ref[:] = w.astype(out_ref.dtype)
-
-        @pl.when(jnp.logical_not(first))
-        def _():
-            out_ref[:] = out_ref[:] + w.astype(out_ref.dtype)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(S,),
-        in_specs=[
-            pl.BlockSpec((T, C * T), lambda s, cid, rowid: (s, 0)),
-            pl.BlockSpec(memory_space=pltpu.ANY),
-        ],
-        out_specs=pl.BlockSpec((T, k), lambda s, cid, rowid: (rowid[s], 0)),
-        scratch_shapes=[
-            pltpu.VMEM((D, C * T, k), U.dtype),
-            pltpu.SemaphoreType.DMA((D, C)),
-        ],
-    )
-    W_out = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_rt * T, k), U.dtype),
-        interpret=interpret,
-    )(cid, rowid, A.data, Up)
-    return W_out[: A.n, : k_orig]
-
-
-def _grouped_ok(A: BSRTile, k: int, itemsize: int = 4) -> bool:
-    if A.gcid is None or os.environ.get("EIGENPINNS_BSR_GROUPED",
-                                        "1") == "0":
-        return False
-    kp = _round_up(k, 128)
-    # Double-buffered union must leave headroom in the ~16 MB VMEM.
-    return 2 * A.gcid.shape[1] * A.tile * kp * itemsize <= 12 << 20
-
-
-def _use_grouped(A: BSRTile, U) -> bool:
-    return _grouped_ok(A, U.shape[1], U.dtype.itemsize)
-
-
 def bsr_spmm_hbm_bytes(A: BSRTile, k: int, rhs_itemsize: int = 4) -> int:
-    """HBM bytes one `bsr_spmm(A, U)` moves for an (n, k) RHS of
-    `rhs_itemsize` bytes/element (4 = f32 default, 2 = bf16), matching
-    the kernel `_impl` actually dispatches (grouped union vs per-chunk
-    burst — the single source of truth for bench/A-B GB/s lines; the two
-    accountings differ ~4x in gather bytes). The itemsize is threaded
-    through the dispatch predicate too, so a bf16 RHS models the branch
-    the dispatcher really takes (ADVICE r3)."""
-    kp = _round_up(k, 128)
+    """Device-memory bytes one `bsr_spmm(A, U)` must move for an (n, k)
+    RHS of `rhs_itemsize` bytes/element: the stored strips, one (T, k)
+    U tile per chunk slot (every chunk gathers its own C tiles), and the
+    (n, k) result. Intermediates that XLA may materialize between the
+    gather, the batched product and the segment sum are not counted, so
+    this is the path's floor, not its measured traffic."""
     strip_b = A.data.nbytes
-    if _grouped_ok(A, k, rhs_itemsize):
-        gather_b = (A.gcid.shape[0] * A.gcid.shape[1] * A.tile * kp
-                    * rhs_itemsize)
-    else:
-        gather_b = A.n_chunks * A.chunk * A.tile * kp * rhs_itemsize
-    out_b = A.n_row_tiles * A.tile * kp * rhs_itemsize
+    gather_b = A.n_chunks * A.chunk * A.tile * k * rhs_itemsize
+    out_b = A.n * k * rhs_itemsize
     return int(strip_b + gather_b + out_b)
-
-
-def _impl(A: BSRTile, U: jax.Array) -> jax.Array:
-    if jax.default_backend() == "tpu":
-        if _use_grouped(A, U):
-            return bsr_spmm_pallas_grouped(A, U)
-        return bsr_spmm_pallas(A, U)
-    return bsr_spmm_reference(A, U)
 
 
 def _zero_like_bsr(A: BSRTile):
@@ -738,25 +351,23 @@ def _zero_like_bsr(A: BSRTile):
 def bsr_spmm(A: BSRTile, U: jax.Array) -> jax.Array:
     """A @ U with a scatter-free VJP (dU = A^T gW; the operator is a
     constant of the optimization)."""
-    return _impl(A, U)
+    return _bsr_matmul(A, U)
 
 
 def _bsr_fwd(A, U):
-    return _impl(A, U), A
+    return _bsr_matmul(A, U), A
 
 
 def _bsr_bwd(A, g):
     At = A.transpose_bsr if A.transpose_bsr is not None else A
-    return (_zero_like_bsr(A), _impl(At, g))
+    return (_zero_like_bsr(A), _bsr_matmul(At, g))
 
 
 bsr_spmm.defvjp(_bsr_fwd, _bsr_bwd)
 
 
 def bsr_spmm_gram(A: BSRTile, U: jax.Array):
-    """(A @ U, U^T A U). The Gram is an XLA epilogue: at tile-compact
-    traffic levels the extra U/W read (2 N k floats) is a few percent of
-    the kernel's HBM bytes — fusion would not pay for its complexity."""
+    """(A @ U, U^T A U); the Gram is an XLA epilogue."""
     from eigenpinns_tpu.sparse.ops import hdot
 
     W = bsr_spmm(A, U)

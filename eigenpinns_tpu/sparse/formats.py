@@ -1,19 +1,17 @@
-"""TPU-friendly sparse matrix containers (JAX pytrees).
+"""Sparse matrix containers (JAX pytrees).
 
 The reference's hot ops are sparse K@U / M@U products done with
 `torch.sparse.mm` COO kernels (`src/multigrid_model.py:306-321`), with a
-per-epoch scipy->torch conversion bug noted in SURVEY.md section 3.1. On
-TPU, scattered COO SpMV maps poorly onto the MXU/VPU; instead we
-preprocess every operator ONCE (host-side) into a padded row-major
-"ELL" layout:
+per-epoch scipy->torch conversion bug noted in SURVEY.md section 3.1.
+Here every operator is preprocessed ONCE (host-side) into a padded
+row-major "ELL" layout:
 
     indices: (N, W) int32   column index of each stored entry (pad: 0)
     values:  (N, W) float   entry value                        (pad: 0.0)
 
-with W = max row degree rounded up to a multiple of 8 (sublane size).
-SpMM then becomes a dense gather + weighted reduction over W — static
-shapes, fully fusable by XLA, and amenable to a Pallas kernel
-(`eigenpinns_tpu.sparse.pallas_kernels`) when N*k is large.
+with W = max row degree rounded up to a multiple of 8. SpMM then becomes
+a dense gather + weighted reduction over W — static shapes, fully
+fusable by XLA (`sparse.ops.spmm`).
 
 Mesh/cloud Laplacians have near-uniform row degree (kNN graphs: exactly
 k+1; FEM: valence ~7), so padding waste is small.

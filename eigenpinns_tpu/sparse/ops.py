@@ -1,9 +1,9 @@
-"""Core sparse linear algebra on TPU: SpMM, Gram reductions, block structure.
+"""Core sparse linear algebra: SpMM, Gram reductions, block structure.
 
 Replaces the reference's torch.sparse COO products
 (`src/multigrid_model.py:306-322`, `src/utils.py:14-20,127-165`) with
 XLA-friendly gather/reduce formulations over the padded-ELL layout, plus
-MXU matmuls for the k x k Gram/Rayleigh reductions. Everything here is
+dense matmuls for the k x k Gram/Rayleigh reductions. Everything here is
 jit-safe and differentiable.
 """
 
@@ -21,12 +21,16 @@ class FunctionOperator:
 
     Lets solver code written against `spmm(A, U)` / `A.diagonal()` (e.g.
     solvers/lobpcg.py) run on operators that are FUNCTIONS — the sharded
-    shard_map SpMM closures of parallel/sharded_banded.py in particular
-    (solvers/lobpcg_sharded.py). The callable's captured arrays are
-    hoisted by jit as implicit constants; `diag` is the only traced leaf.
+    SpMMs of parallel/sharded_banded.py in particular
+    (solvers/lobpcg_sharded.py). A pytree callable (`ShardedSpMM`) keeps
+    its operator arrays as traced leaves, so jit takes them as
+    arguments; a plain function rides the treedef (jax.tree_util.Partial)
+    and its captured arrays become constants of the executable.
     """
 
     def __init__(self, fn, diag):
+        if jax.tree_util.treedef_is_leaf(jax.tree_util.tree_structure(fn)):
+            fn = jax.tree_util.Partial(fn)
         self.fn = fn
         self.diag = diag
 
@@ -39,25 +43,46 @@ class FunctionOperator:
         return (n, n)
 
     def tree_flatten(self):
-        return (self.diag,), self.fn
+        return (self.fn, self.diag), None
 
     @classmethod
-    def tree_unflatten(cls, fn, children):
-        return cls(fn, children[0])
+    def tree_unflatten(cls, _, children):
+        op = object.__new__(cls)
+        op.fn, op.diag = children
+        return op
 
 
 def hdot(a: jax.Array, b: jax.Array) -> jax.Array:
-    """Full-f32 matmul. TPU MXU matmuls default to bf16 input rounding,
-    which is fatal for orthogonalization/Gram arithmetic (observed: LOBPCG
-    diverging on-chip while bit-identical code converged on CPU). All
-    numerically sensitive products route through here."""
+    """Full-f32 matmul. Accelerator matmuls at the default precision round
+    f32 inputs (TF32 on the H100: ~1e-3 relative error), which is fatal
+    for orthogonalization/Gram arithmetic (LOBPCG diverges where the same
+    code in full f32 converges). All numerically sensitive products
+    route through here."""
     return jnp.dot(a, b, precision=jax.lax.Precision.HIGHEST,
                    preferred_element_type=jnp.float32).astype(a.dtype)
 
 
+def operator_dot(a: jax.Array, b: jax.Array, precision: str) -> jax.Array:
+    """f32 result of a @ b for a block `a` of a stored operator, at one of
+    the operator formats' precision names:
+
+      'highest'  full f32 (Precision.HIGHEST) — solver grade;
+      'high'     Precision.HIGH. On the H100 XLA runs it on the TF32
+                 tensor cores, ~1e-3 relative error (PERF.md) —
+                 training-loss grade only; on the CPU it is full f32;
+      'bf16'     the operator is stored in bf16 (half the bytes, ~3
+                 decimal digits) and multiplies the f32 operand at the
+                 default precision (TF32 on the H100) — training-loss
+                 grade only.
+    """
+    prec = {"highest": jax.lax.Precision.HIGHEST,
+            "high": jax.lax.Precision.HIGH,
+            "bf16": jax.lax.Precision.DEFAULT}[precision]
+    return jnp.dot(a, b, precision=prec, preferred_element_type=jnp.float32)
+
+
 # Cap on the gathered (N, W, k) intermediate. Beyond it the SpMM chunks
-# the mode axis: at 1M x W24 x k150 the one-shot gather wants ~14 GB and
-# OOMs the 16 GB chip.
+# the mode axis: at 1M x W24 x k150 the one-shot gather wants ~14 GB.
 _GATHER_BUDGET_ELEMS = 512 * 1024 * 1024  # ~2 GB in f32
 
 
@@ -90,8 +115,8 @@ def _gather_spmm(indices: jax.Array, values: jax.Array,
 def _ell_spmm(indices, values, t_indices, t_values, U):
     """ELL SpMM whose VJP uses the EXPLICIT transpose operator.
 
-    The autodiff backward of a gather is a scatter-add — measured ~5x the
-    whole forward step on TPU. Backpropagating A^T @ g as another gather
+    The autodiff backward of a gather is a scatter-add, which serializes
+    on colliding rows. Backpropagating A^T @ g as another gather
     SpMM removes every scatter from the training step. (t_indices,
     t_values) hold A^T in ELL; for symmetric operators they alias A's.
     """
@@ -161,13 +186,9 @@ def spmv(A, u: jax.Array) -> jax.Array:
 
 
 def spmm_gram(A, U: jax.Array):
-    """(A @ U, U^T A U) — fused one-pass kernel for banded operators.
-
-    The k x k Gram is the loss's orthonormality core
-    (src/multigrid_model.py:320-322); computing it as a separate
-    `gram(U, spmm(A, U))` costs a second full HBM read of U and A @ U.
-    Banded/split operators accumulate it on the MXU inside the SpMM
-    kernel; other formats fall back to the two-pass form.
+    """(A @ U, U^T A U) — the SpMM and the loss's k x k orthonormality
+    Gram (src/multigrid_model.py:320-322) in one call, dispatched on the
+    operator format (the split format adds its remainder's correction).
     """
     from eigenpinns_tpu.sparse.banded import BandedELL, banded_spmm_gram
 
@@ -233,7 +254,7 @@ def residual(U: jax.Array, K, M, lam: jax.Array) -> jax.Array:
 
 def block_diag_ell(ops: list) -> SparseELL:
     """Stack per-level operators into one block-diagonal SparseELL — the
-    TPU analog of `utils.sparse_block_diag` (src/utils.py:127-165).
+    analog of `utils.sparse_block_diag` (src/utils.py:127-165).
 
     All levels share one SpMM over the concatenated node axis; column
     indices are offset so each block only gathers within its own span.

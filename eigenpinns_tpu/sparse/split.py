@@ -9,7 +9,7 @@ each, and DECOMPOSE the operator
     A = A_band + A_rem
 
 where A_band holds every entry inside a capped per-tile window (the
-intra-cluster bulk — MXU matmuls via the banded kernel) and A_rem holds
+intra-cluster bulk — dense tile matmuls of banded.py) and A_rem holds
 the few cluster-boundary entries (gather-ELL with its scatter-free VJP).
 SpMM = banded_spmm + ell spmm; both parts already differentiate without
 scatters.
@@ -273,7 +273,7 @@ def split_spmm(A: SplitBanded, U: jax.Array) -> jax.Array:
 
 
 def split_spmm_gram(A: SplitBanded, U: jax.Array):
-    """(A @ U, U^T A U): fused Gram on the banded core, plus the thin
+    """(A @ U, U^T A U): Gram of the banded core, plus the thin
     remainder correction U^T (A_rem U)."""
     from eigenpinns_tpu.sparse.ops import gram
 

@@ -6,6 +6,7 @@ from eigenpinns_tpu.utils.fixtures import (
     generate_test_matrices,
     verify_eigenpairs,
     subsample_hierarchy,
+    icosphere,
 )
 from eigenpinns_tpu.utils.profiling import PhaseTimer, trace, annotate
 from eigenpinns_tpu.utils.debug import (
@@ -17,6 +18,7 @@ from eigenpinns_tpu.utils.debug import (
 __all__ = [
     "laplacian_1d", "laplacian_1d_eigenvalues", "tridiagonal", "random_spd",
     "generate_test_matrices", "verify_eigenpairs", "subsample_hierarchy",
+    "icosphere",
     "PhaseTimer", "trace", "annotate", "debug_nans", "deterministic_mode",
     "assert_finite",
 ]

@@ -1,7 +1,7 @@
 """Debug / determinism utilities.
 
 The reference is single-threaded Python with no sanitizers (SURVEY.md
-sec 5). The TPU framework's equivalents: NaN trapping through jax's
+sec 5). This framework's equivalents: NaN trapping through jax's
 debug-nans mode, and a deterministic test mode pinning every RNG.
 """
 

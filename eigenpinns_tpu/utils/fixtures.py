@@ -115,3 +115,37 @@ def subsample_hierarchy(n: int, levels: list[int], method: str = "uniform",
         out.append(idx)
     out.append(np.arange(n))
     return out
+
+
+def icosphere(subdivisions: int):
+    """Unit icosphere: (verts (V, 3) float64, faces (F, 3) int32) with
+    V = 10 * 4**subdivisions + 2 (2,562 at 4 subdivisions) and
+    counter-clockwise outward faces. Each subdivision splits every
+    triangle into four at its edge midpoints, projected to the sphere."""
+    t = (1.0 + 5.0 ** 0.5) / 2.0
+    verts = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0),
+             (0, -1, t), (0, 1, t), (0, -1, -t), (0, 1, -t),
+             (t, 0, -1), (t, 0, 1), (-t, 0, -1), (-t, 0, 1)]
+    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+             (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+             (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+             (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    verts = [np.asarray(v, np.float64) / np.linalg.norm(v) for v in verts]
+    for _ in range(subdivisions):
+        midpoint: dict = {}
+
+        def mid(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in midpoint:
+                m = verts[a] + verts[b]
+                verts.append(m / np.linalg.norm(m))
+                midpoint[key] = len(verts) - 1
+            return midpoint[key]
+
+        new_faces = []
+        for a, b, c in faces:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            new_faces += [(a, ab, ca), (b, bc, ab), (c, ca, bc),
+                          (ab, bc, ca)]
+        faces = new_faces
+    return np.asarray(verts), np.asarray(faces, dtype=np.int32)

@@ -18,7 +18,7 @@ ones via M-orthogonality penalties. Two drivers are compared:
     convergence-gated in-loop reinitialization — the notebook's fix for
     stalled modes.
 
-Both finish with an optional LOBPCG polish (the TPU-native step the
+Both finish with an optional LOBPCG polish (the device-side step the
 notebook lacked) that takes whichever subspace was found to
 solver-grade accuracy.
 

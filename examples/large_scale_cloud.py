@@ -1,4 +1,4 @@
-"""300k-point cloud, 20 modes, banded MXU operators (stretch config).
+"""300k-point cloud, 20 modes, banded device operators (stretch config).
 
     python examples/large_scale_cloud.py
 
@@ -30,9 +30,8 @@ h = build_hierarchy(mesh, levels, n_modes=20,
                     pc_neighbors=15, prolongation_neighbors=8,
                     k_neighbors=8, operator_format="auto")
 cfg = Config(n_modes=20, hierarchy=levels,
-             loss_mxu_precision="bf16",  # production large-N config:
-                                         # identical polished accuracy,
-                                         # +25-37% steps/s (PARITY.md)
+             loss_mxu_precision="bf16",  # large-N config: the polish
+                                         # restores full accuracy
              hidden_layers=[64] * 2 if SMOKE else [256] * 4,
              epochs=20 if SMOKE else 400,
              scan_chunk=10 if SMOKE else 100,
@@ -52,9 +51,7 @@ print("max rel err vs eigsh:", float(rel.max()))
 # 65k voxel-coarse eigsh warm start + kNN prolongation, cluster-ordered
 # SplitBanded operator, blocked deflated LOBPCG (sweeps of 16 + 4 guard
 # vectors, each sweep M-orthogonally deflated against all converged
-# modes). Measured on one v5e chip: solve 193 s (vs 371 s host
-# shift-invert eigsh on the same operator), max rel eigenvalue err
-# 3.1e-4 over modes 1-49.
+# modes). Solve time and accuracy on the H100: not measured.
 if bool(int(os.environ.get("EIGENPINNS_1M", "0"))):
     from eigenpinns_tpu.solvers import spectral_basis
 

@@ -5,9 +5,7 @@
 Full mode runs BASELINE config 5's "batched over a mesh family" at real
 scale: face.obj (25,905 verts) plus two quadric-decimated members (16k,
 10k), k=20, ONE vmapped training program for all three, then per-mesh
-LOBPCG polish. Measured (v5e single chip): training 19 steps/s for all
-three meshes simultaneously; after polish every mesh is <= 2.4e-4 max
-rel eigenvalue err vs its own eigsh oracle.
+LOBPCG polish. Training rate and accuracy on the H100: not measured.
 
 Set EIGENPINNS_SMOKE=1 for a seconds-scale miniature (CI smoke mode:
 four random sphere clouds).

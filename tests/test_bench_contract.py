@@ -1,12 +1,10 @@
-"""Driver-facing contract of bench.py's supervisor (no device needed).
+"""Contract of bench.py's parent process (no device needed).
 
-Round 3 lost ALL perf evidence to a single hang because the old bench
-printed its one JSON line only at the very end (VERDICT r3 weak #1).
-The supervisor's contract — the driver parses the LAST parseable line
-of stdout — is what these tests pin down: every emit() must be a
+The result is the LAST parseable line of stdout: every emit() must be a
 complete, parseable line; phase results/failures must degrade the
-extras, never the parseability; and the headline `value` must stay the
-round-1/2 per-chunk convention (VERDICT r3 item 2).
+extras, never the parseability; the headline `value` is the per-chunk
+convention; a failed phase makes the run exit non-zero; and the peak
+table knows the H100 and refuses any other device.
 
 bench.py imports only stdlib at module level, so these tests are safe
 on any platform (no jax, no device).
@@ -99,26 +97,47 @@ def test_write_json_is_atomic_and_readable_back(bench, tmp_path):
     assert bench.read_json(str(tmp_path / "missing.json")) is None
 
 
-def test_run_phase_caps_init_retries(bench, tmp_path, monkeypatch):
-    """A child that keeps failing TPU init (rc=3/4) is retried — outage
-    windows open and close — but only up to the soft cap, so a
-    deterministic init failure cannot starve later phases of the whole
-    deadline (review r5)."""
-    import time as _time
+class _FakeDevice:
+    def __init__(self, kind):
+        self.device_kind = kind
 
-    launches = []
 
-    class FakeProc:
-        def wait(self, timeout=None):
-            return bench.RC_INIT_ERROR
+def test_peak_table_knows_h100(bench):
+    peaks = bench.peaks_for(_FakeDevice("NVIDIA H100 80GB HBM3"))
+    assert peaks["bf16_flops"] == 989e12
+    assert peaks["tf32_flops"] == 495e12
+    assert peaks["f32_flops"] == 67e12
+    assert peaks["hbm_bytes_per_s"] == 3.35e12
 
-        def kill(self):
-            pass
 
-    monkeypatch.setattr(bench.subprocess, "Popen",
-                        lambda *a, **k: launches.append(1) or FakeProc())
-    monkeypatch.setattr(bench.time, "sleep", lambda s: None)
-    ok = bench.run_phase("bunny", str(tmp_path / "bunny.json"),
-                         budget_s=100, deadline=_time.monotonic() + 10_000)
-    assert ok is False
-    assert len(launches) == 10  # soft cap, not deadline exhaustion
+@pytest.mark.parametrize("kind", ["NVIDIA H100 PCIe", "NVIDIA A100-SXM4-80GB",
+                                  "cpu", ""])
+def test_peak_table_refuses_unknown_device(bench, kind):
+    with pytest.raises(KeyError, match="device_kind"):
+        bench.peaks_for(_FakeDevice(kind))
+
+
+def test_failed_phase_fails_the_run(bench, tmp_path, capsys, monkeypatch):
+    """One failed phase: every phase still runs once, the result line is
+    still printed, and run_all() reports failure (main exits 1)."""
+    monkeypatch.setattr(bench, "OUT_DIR", str(tmp_path))
+    monkeypatch.setattr(bench, "card_line", lambda: "fake card, 700.00 W")
+    ran = []
+
+    def fake_run_phase(name, budget_s, deadline):
+        ran.append(name)
+        return name != "large"
+
+    monkeypatch.setattr(bench, "run_phase", fake_run_phase)
+    assert bench.run_all() is False
+    assert ran == ["bunny", "large", "xl"]
+    last = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert "large" in last["extra"]["note"]
+
+    monkeypatch.setattr(bench, "run_phase", lambda *a: True)
+    assert bench.run_all() is True
+    monkeypatch.setattr(bench.sys, "argv", ["bench.py"])
+    monkeypatch.setattr(bench, "run_phase", lambda *a: False)
+    with pytest.raises(SystemExit) as exc:
+        bench.main()
+    assert exc.value.code == 1

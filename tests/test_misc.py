@@ -176,7 +176,7 @@ def test_optimizer_stacks():
 def test_scan_loop_start_epoch_and_below_tol():
     """start_epoch offsets the epoch step_fn sees (checkpoint-resume
     ramps continue); below_tol mode stops once the metric stays under
-    tol for `patience` epochs (ADVICE r1)."""
+    tol for `patience` epochs."""
     import jax.numpy as jnp
 
     from eigenpinns_tpu.train.loop import run_scan_loop

@@ -216,7 +216,7 @@ def test_partial_weight_copy(rng):
 def test_mlp_bf16_compute_dtype(rng):
     """compute_dtype='bfloat16' keeps params f32 and output f32, shares
     the param pytree with the f32 model, and stays within bf16 rounding
-    of the f32 forward (the 300k training step's MXU lever)."""
+    of the f32 forward (the 300k training step's matmul lever)."""
     import jax
 
     from eigenpinns_tpu.models import MLP
@@ -244,3 +244,96 @@ def test_mlp_bf16_compute_dtype(rng):
     cos = jnp.vdot(flat32, flat16) / (
         jnp.linalg.norm(flat32) * jnp.linalg.norm(flat16))
     assert float(cos) > 0.99
+
+
+def _act(name):
+    from eigenpinns_tpu.models import ACTIVATIONS
+
+    return ACTIVATIONS[name]
+
+
+@pytest.mark.parametrize("activation", ["relu", "silu", "tanh", "sin"])
+def test_mlp_apply_is_the_explicit_matmul_chain(activation):
+    """models.nn layers: MLP.apply equals x @ W + b per layer with the
+    activation between (first-layer omega for sin nets)."""
+    from eigenpinns_tpu.models import MLP
+
+    x = jnp.asarray(np.random.default_rng(0).normal(size=(9, 5)),
+                    jnp.float32)
+    m = MLP((7, 6), 3, activation=activation, first_layer_omega=2.0)
+    p = m.init(jax.random.PRNGKey(1), x)["params"]
+    h = np.asarray(x, np.float64)
+    for i, name in enumerate(["hidden_0", "hidden_1"]):
+        h = h @ np.asarray(p[name]["kernel"]) + np.asarray(p[name]["bias"])
+        scale = 2.0 if (i == 0 and activation == "sin") else 1.0
+        h = np.asarray(_act(activation)(jnp.asarray(scale * h)), np.float64)
+    ref = h @ np.asarray(p["out"]["kernel"]) + np.asarray(p["out"]["bias"])
+    out = np.asarray(m.apply({"params": p}, x), np.float64)
+    assert np.abs(out - ref).max() < 1e-5
+
+
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_dense_follows_default_matmul_precision(precision):
+    """Dense layers take JAX's default matmul precision (TF32 on the
+    H100 unless a caller asks for 'highest'), as the traced HLO shows."""
+    from eigenpinns_tpu.models import MLP
+
+    x = jnp.ones((4, 3))
+    m = MLP((8,), 2)
+    p = m.init(jax.random.PRNGKey(0), x)
+    with jax.default_matmul_precision(precision):
+        text = jax.jit(m.apply).lower(p, x).as_text()
+    assert text.count("dot_general") == 2
+    assert ("HIGHEST" in text) == (precision == "highest")
+
+
+def test_module_parameter_tree_layout():
+    """Parameter trees keep flax's layout: Dense leaves kernel (in, out) +
+    bias (out,), auto-named children `<Class>_<i>`, explicit names for
+    the layers; lecun-normal kernels and zero biases."""
+    from eigenpinns_tpu.models import HierarchicalUpscaler
+
+    x = jnp.ones((4, 3))
+    e = jnp.asarray(np.array([[0, 1, 2], [1, 2, 3]]))
+    p = make_corrector("adaptive", [8, 8], 2).init(
+        jax.random.PRNGKey(0), x, e)["params"]
+    assert list(p) == ["SimpleCorrector_0", "mode_scales"]
+    mlp = p["SimpleCorrector_0"]["MLP_0"]
+    assert list(mlp) == ["hidden_0", "hidden_1", "out"]
+    assert mlp["hidden_0"]["kernel"].shape == (6, 8)    # concat(x, agg)
+    assert mlp["hidden_0"]["bias"].shape == (8,)
+    assert not np.any(np.asarray(mlp["hidden_1"]["bias"]))
+    assert list(LambdaEigenNet((4,)).init(jax.random.PRNGKey(0), x)[
+        "params"]) == ["lambda_raw", "hidden_0", "out"]
+    assert list(HierarchicalUpscaler((4,), 6).init(
+        jax.random.PRNGKey(0), x[:, 0])["params"]) == ["MLP_0", "lam"]
+    from eigenpinns_tpu.models import MLP
+
+    k = MLP((512,), 2).init(jax.random.PRNGKey(3), jnp.ones((1, 400)))[
+        "params"]["hidden_0"]["kernel"]
+    assert abs(float(jnp.std(k)) - (1 / 400) ** 0.5) < 0.1 * (1 / 400) ** 0.5
+
+
+def test_module_init_is_deterministic_per_path():
+    """Same key -> same parameters; each layer draws its own values."""
+    from eigenpinns_tpu.models import MLP
+
+    m = MLP((8, 8), 2)
+    a = m.init(jax.random.PRNGKey(0), jnp.ones((1, 8)))["params"]
+    b = m.init(jax.random.PRNGKey(0), jnp.ones((1, 8)))["params"]
+    assert np.array_equal(a["hidden_1"]["kernel"], b["hidden_1"]["kernel"])
+    assert not np.allclose(a["hidden_0"]["kernel"], a["hidden_1"]["kernel"])
+
+
+def test_dropout_needs_a_key_only_when_active():
+    from eigenpinns_tpu.models import MLP
+
+    x = jnp.ones((50, 4))
+    m = MLP((64,), 2, dropout=0.5)
+    p = m.init(jax.random.PRNGKey(0), x)
+    assert np.array_equal(m.apply(p, x), m.apply(p, x, deterministic=True))
+    with pytest.raises(ValueError, match="rngs"):
+        m.apply(p, x, deterministic=False)
+    y1 = m.apply(p, x, deterministic=False,
+                 rngs={"dropout": jax.random.PRNGKey(1)})
+    assert not np.allclose(y1, m.apply(p, x))

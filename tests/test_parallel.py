@@ -154,6 +154,39 @@ def test_sharded_banded_spmm_real_operator(mesh8, bunny_fem, rng):
     assert np.abs(np.asarray(op.diagonal()) - Kp.diagonal()).max() < 1e-5
 
 
+@pytest.mark.parametrize("split", [False, True])
+def test_sharded_spmm_places_one_shard_per_device(mesh8, rng, split):
+    """The sharded SpMM factories put shard s of every operator array
+    on device s, so no device holds the whole operator."""
+    from eigenpinns_tpu.geometry import point_cloud_laplacian
+    from eigenpinns_tpu.parallel import (
+        build_sharded_operator,
+        sharded_banded_spmm,
+        sharded_split_spmm,
+    )
+
+    from eigenpinns_tpu.utils import laplacian_1d
+
+    if split:
+        X = rng.normal(size=(2000, 3))
+        X /= np.linalg.norm(X, axis=1, keepdims=True)
+        L, _ = point_cloud_laplacian(X, n_neighbors=14)
+        kind, (core, rem), _ = build_sharded_operator(
+            L, 8, X=X, max_bandwidth=128, window=128)
+    else:
+        kind, (core, rem), _ = build_sharded_operator(laplacian_1d(2048), 8)
+    assert kind == ("split" if split else "banded")
+    f = (sharded_split_spmm(core, rem, mesh8) if split
+         else sharded_banded_spmm(core, mesh8))
+    leaves = jax.tree_util.tree_leaves(f)
+    assert len(leaves) == (6 if split else 4)
+    for leaf in leaves:
+        assert leaf.sharding.spec == P("data")
+        shards = leaf.addressable_shards
+        assert len({s.device for s in shards}) == 8
+        assert all(s.data.shape[0] == 1 for s in shards)
+
+
 def test_sharded_banded_rejects_crossing_stencil(mesh8):
     """A mesh too small for 8 shards (bandwidth > rows/shard) must be
     rejected so callers fall back to all_gather — the stencil-check
@@ -219,8 +252,7 @@ def test_halo_spmm_real_mesh_operator(bunny_fem, rng):
 @pytest.mark.slow
 def test_train_joint_sharded_matches_single_device(rng):
     """The distributed production trainer reproduces the single-device
-    trainer: same loss trajectory and the same eigenvalues (VERDICT r1
-    item 2's done-criterion)."""
+    trainer: same loss trajectory and the same eigenvalues."""
     from eigenpinns_tpu.geometry import point_cloud_laplacian
     from eigenpinns_tpu.solvers import train_joint, train_joint_sharded
 
@@ -239,8 +271,7 @@ def test_train_joint_sharded_matches_single_device(rng):
     assert lam_d.max() < 1e-4
     # Returned eigenvectors are in the caller's vertex order and must
     # MATCH the single-device ones mode by mode (up to sign) — the real
-    # invariant of this test, replacing the old residual<1.0 non-check
-    # (VERDICT r2 weak item 5).
+    # invariant of this test, replacing the old residual<1.0 non-check.
     U1, U8 = r1.eigenvectors, r8.eigenvectors
     sign = np.sign(np.sum(U1 * U8, axis=0))
     d_vec = np.abs(U8 * sign[None, :] - U1).max() / np.abs(U1).max()
@@ -340,8 +371,8 @@ def test_train_joint_sharded_checkpoint_resume(rng, tmp_path):
 def test_two_axis_mesh_halo_spmm_and_gram(rng):
     """Product meshes (data x model): the halo ring and the Gram psum
     must address ONLY their named axis, so a second mesh axis (with the
-    operands replicated along it) changes nothing (VERDICT r2 weak
-    item 6 — collective correctness under a non-1D mesh)."""
+    operands replicated along it) changes nothing (collective
+    correctness under a non-1D mesh)."""
     mesh = make_mesh(8, axis_names=("data", "model"), shape=(4, 2))
     n, k = 512, 5
     A = banded_operator(n, width=3)

@@ -179,8 +179,7 @@ def test_hierarchy_save_load_roundtrip(coarse1_mesh, tmp_path):
 
 def test_banded_connectivity_edges_follow_permutation(coarse1_mesh):
     """With banded operators the node data is RCM-permuted per level;
-    connectivity edges must be remapped into the same numbering
-    (ADVICE r1)."""
+    connectivity edges must be remapped into the same numbering."""
     kw = dict(hierarchy=[100], n_modes=4,
               sampler_type="graph_coarsening",
               edge_computation_type="connectivity_based")

@@ -107,7 +107,7 @@ def test_banded_format_and_spmm(rng):
     import jax.numpy as jnp
     import scipy.sparse as sp
 
-    from eigenpinns_tpu.sparse import BandedELL, banded_spmm, banded_spmm_pallas
+    from eigenpinns_tpu.sparse import BandedELL, banded_spmm
 
     n = 300
     K = sp.diags([-1.0, -0.5, 2.9, -0.5, -1.0], [-2, -1, 0, 1, 2],
@@ -118,9 +118,6 @@ def test_banded_format_and_spmm(rng):
     out = np.asarray(banded_spmm(op, jnp.asarray(U)))
     ref = Kp @ U.astype(np.float64)
     assert np.abs(out - ref).max() / np.abs(ref).max() < 1e-5
-    # Pallas interpret path agrees too.
-    out2 = np.asarray(banded_spmm_pallas(op, jnp.asarray(U), interpret=True))
-    assert np.abs(out2 - ref).max() / np.abs(ref).max() < 1e-5
 
 
 def test_banded_spmm_gradient(rng):
@@ -214,7 +211,7 @@ def test_split_banded_decomposition():
 
 def test_split_banded_rejects_nonsymmetric():
     """The split path's VJP assumes numeric symmetry — reject anything
-    else at build time (ADVICE r1)."""
+    else at build time."""
     import pytest as _pt
     import scipy.sparse as sp
 
@@ -228,17 +225,13 @@ def test_split_banded_rejects_nonsymmetric():
 
 
 def test_banded_spmm_gram_fused(rng):
-    """Fused (A@U, U^T A U) matches the two-pass form on the reference and
-    Pallas-interpret paths, and its VJP matches the analytic gradient."""
+    """(A@U, U^T A U) matches the dense two-pass form, and its VJP matches
+    the analytic gradient."""
     import jax
     import jax.numpy as jnp
     import scipy.sparse as sp
 
-    from eigenpinns_tpu.sparse import (
-        BandedELL,
-        banded_spmm_gram,
-        banded_spmm_gram_pallas,
-    )
+    from eigenpinns_tpu.sparse import BandedELL, banded_spmm_gram
 
     n, k = 300, 8
     K = sp.diags([-1.0, -0.5, 2.9, -0.5, -1.0], [-2, -1, 0, 1, 2],
@@ -252,10 +245,6 @@ def test_banded_spmm_gram_fused(rng):
     W, G = banded_spmm_gram(op, jnp.asarray(U))
     assert np.abs(np.asarray(W) - W_ref).max() / np.abs(W_ref).max() < 1e-5
     assert np.abs(np.asarray(G) - G_ref).max() / np.abs(G_ref).max() < 1e-5
-
-    W2, G2 = banded_spmm_gram_pallas(op, jnp.asarray(U), interpret=True)
-    assert np.abs(np.asarray(W2) - W_ref).max() / np.abs(W_ref).max() < 1e-5
-    assert np.abs(np.asarray(G2) - G_ref).max() / np.abs(G_ref).max() < 1e-5
 
     # VJP: f = sum(W^2) + sum(G^2); df/dU = 2 A^T A U
     #      + 2 [A U G^T + A^T U G]  (A symmetric here).
@@ -320,8 +309,8 @@ def test_rayleigh_residual_orth_matches_two_pass(rng):
 
 
 def test_rolling_banded_spmm_and_gram(rng):
-    """Rolling-window format: reference, Pallas-interpret, fused Gram and
-    diagonal all agree with dense; VJP matches the analytic gradient."""
+    """Rolling-window format: SpMM, Gram and diagonal all agree with
+    dense; VJP matches the analytic gradient."""
     import jax
     import jax.numpy as jnp
     import scipy.sparse as sp
@@ -330,8 +319,6 @@ def test_rolling_banded_spmm_and_gram(rng):
         RollingBanded,
         rolling_spmm,
         rolling_spmm_gram,
-        rolling_spmm_gram_pallas,
-        rolling_spmm_pallas,
     )
 
     n, k = 333, 7   # deliberately not multiples of the tile
@@ -347,16 +334,9 @@ def test_rolling_banded_spmm_and_gram(rng):
     assert np.abs(W - W_ref).max() / np.abs(W_ref).max() < 1e-5
     assert np.allclose(np.asarray(op.diagonal()), np.diag(Kp), atol=1e-6)
 
-    W2 = np.asarray(rolling_spmm_pallas(op, jnp.asarray(U), interpret=True))
-    assert np.abs(W2 - W_ref).max() / np.abs(W_ref).max() < 1e-5
-
     Wg, Gg = rolling_spmm_gram(op, jnp.asarray(U))
     assert np.abs(np.asarray(Wg) - W_ref).max() / np.abs(W_ref).max() < 1e-5
     assert np.abs(np.asarray(Gg) - G_ref).max() / np.abs(G_ref).max() < 1e-5
-
-    Wp, Gp = rolling_spmm_gram_pallas(op, jnp.asarray(U), interpret=True)
-    assert np.abs(np.asarray(Wp) - W_ref).max() / np.abs(W_ref).max() < 1e-5
-    assert np.abs(np.asarray(Gp) - G_ref).max() / np.abs(G_ref).max() < 1e-5
 
     def f(U):
         W, G = rolling_spmm_gram(op, U)
@@ -414,14 +394,12 @@ def test_rolling_banded_real_operator(rng):
 
 
 def test_bsr_strip_spmm_and_gram(rng):
-    """Strip-BSR == dense on a random symmetric operator, plus VJP and
-    the pallas interpret path (the TPU kernel's exact program)."""
+    """Strip-BSR == dense on a random symmetric operator, plus VJP."""
     import jax
     import jax.numpy as jnp
     import scipy.sparse as sp
 
     from eigenpinns_tpu.sparse import BSRTile, bsr_spmm, bsr_spmm_gram
-    from eigenpinns_tpu.sparse.bsr import bsr_spmm_pallas
 
     n = 700
     A = sp.random(n, n, density=0.01, random_state=1, format="csr")
@@ -436,8 +414,6 @@ def test_bsr_strip_spmm_and_gram(rng):
     assert np.abs(np.asarray(W) - W_ref).max() < 1e-4
     assert (np.abs(np.asarray(G) - np.asarray(U, np.float64).T @ W_ref).max()
             < 5e-3)
-    Wp = bsr_spmm_pallas(op, U, interpret=True)
-    assert np.abs(np.asarray(Wp) - W_ref).max() < 1e-4
     # Symmetric VJP: d/dU sum(sin(A U)) = A^T cos(A U).
     g = jax.grad(lambda u: jnp.sum(jnp.sin(bsr_spmm(op, u))))(U)
     assert np.abs(np.asarray(g) - Ap.T @ np.cos(W_ref)).max() < 1e-4
@@ -492,7 +468,7 @@ def test_bsr_real_operator_matches_rolling(rng):
 
 def test_bf16_stored_operator_mode(rng):
     """with_precision('bf16') matmuls a bf16-ROUNDED operator exactly
-    (training-loss-only precision: half the band bytes, one MXU pass)."""
+    (training-loss-only precision: half the band bytes)."""
     import jax
     import jax.numpy as jnp
     import ml_dtypes
@@ -524,11 +500,9 @@ def test_bf16_stored_operator_mode(rng):
 
 
 def test_precision_roundtrip_upcasts_band(rng):
-    """with_precision('highest') on a bf16-STORED operator upcasts the
-    band back to f32 — the TPU kernels reject bf16 operands under
-    Precision.HIGHEST, so the roundtrip must restore f32 storage (the
-    values keep their bf16 rounding; keeping the f32 original around is
-    still the documented solver-grade pattern)."""
+    """with_precision('highest') on a bf16-STORED operator restores f32
+    storage (the values keep their bf16 rounding; keeping the f32
+    original around is still the documented solver-grade pattern)."""
     import jax.numpy as jnp
 
     from eigenpinns_tpu.geometry import point_cloud_laplacian
@@ -577,32 +551,6 @@ def test_function_operator_dispatch(rng):
     assert np.allclose(np.asarray(spmm(op2, U)), 3.0 * np.asarray(U))
 
 
-@pytest.mark.slow
-def test_bsr_prefetch_depths_match(rng):
-    """The depth-D gather ring produces identical results at every depth
-    (interpret mode; D=2 is plain double buffering)."""
-    import jax.numpy as jnp
-    import scipy.sparse as sp
-
-    from eigenpinns_tpu.sparse import BSRTile
-    from eigenpinns_tpu.sparse.bsr import bsr_spmm_pallas
-
-    n = 800
-    A = sp.random(n, n, density=0.02, random_state=3, format="csr")
-    A = A + A.T + sp.diags(np.ones(n))
-    op, perm = BSRTile.from_scipy(A)
-    U = jnp.asarray(rng.normal(size=(n, 4)).astype(np.float32))
-    ref = A.tocsr()[perm][:, perm] @ np.asarray(U, np.float64)
-    # Depth is now an explicit parameter (the env var is read once at
-    # module import — ADVICE r3 — so per-call env juggling can't work).
-    outs = {d: np.asarray(bsr_spmm_pallas(op, U, interpret=True,
-                                          prefetch_depth=d))
-            for d in (2, 3, 4, 8)}
-    for d, W in outs.items():
-        assert np.abs(W - ref).max() < 1e-4, d
-        assert np.array_equal(W, outs[2]), d
-
-
 def test_hilbert_order_locality_and_validity(rng):
     """hilbert_order is a valid permutation whose kNN index spread is far
     tighter than the input ordering's on a surface cloud — the property
@@ -630,7 +578,7 @@ def test_split_banded_hilbert_and_explicit_order():
     and hilbert's remainder stays a small fraction of the nnz at a small
     window. (A locally seeded rng: with the session-shared fixture the
     draw depended on test order, and the old hilbert-vs-cluster near-tie
-    comparison failed for some draws — ADVICE r3. Exactness and the
+    comparison failed for some draws. Exactness and the
     explicit-order round-trip are the valuable assertions; the
     comparative one was a property of the draw, not of the code.)"""
     import jax.numpy as jnp
@@ -660,7 +608,7 @@ def test_split_banded_hilbert_and_explicit_order():
 
     # Hilbert ordering keeps most of the nnz inside the small window —
     # an absolute bound, not a near-tie comparison against another
-    # ordering (that comparison was draw-dependent; ADVICE r3).
+    # ordering (that comparison was draw-dependent).
     assert op_h.remainder_nnz_fraction < 0.5
 
     import pytest as _pt
@@ -709,121 +657,105 @@ def test_split_banded_bf16_core_f32_remainder(rng):
     assert np.abs(dense + rem - Lp).max() / np.abs(Lp).max() < 1e-2
 
 
-def test_banded_pallas_bf16_band(rng):
-    """The banded Pallas kernels accept a bf16-stored band (interpret
-    mode): rhs is cast to bf16 in-kernel and accumulated in f32."""
-    import jax.numpy as jnp
-    import ml_dtypes
-    import scipy.sparse as sp
-
-    from eigenpinns_tpu.sparse import BandedELL
-    from eigenpinns_tpu.sparse.banded import (
-        banded_spmm_gram_pallas,
-        banded_spmm_pallas,
-    )
-
-    n, k = 300, 8
-    K = sp.diags([-1.0, -0.5, 2.9, -0.5, -1.0], [-2, -1, 0, 1, 2],
-                 shape=(n, n)).tocsr()
-    op, perm = BandedELL.from_scipy(K, dtype=jnp.bfloat16)
-    assert op.band.dtype == jnp.bfloat16
-    Kp = (K[perm][:, perm]).toarray()
-    Kb = Kp.astype(ml_dtypes.bfloat16).astype(np.float64)
-    U = rng.normal(size=(n, k)).astype(np.float32)
-    Ub = np.asarray(U, np.float64).astype(ml_dtypes.bfloat16).astype(
-        np.float64)
-    W_ref = Kb @ Ub
-    scale = np.abs(W_ref).max()
-
-    W = np.asarray(banded_spmm_pallas(op, jnp.asarray(U), interpret=True),
-                   np.float64)
-    assert np.abs(W - W_ref).max() / scale < 2e-2
-
-    W2, G2 = banded_spmm_gram_pallas(op, jnp.asarray(U), interpret=True)
-    G_ref = np.asarray(U, np.float64).T @ W_ref
-    assert np.abs(np.asarray(W2, np.float64) - W_ref).max() / scale < 2e-2
-    assert (np.abs(np.asarray(G2, np.float64) - G_ref).max()
-            / np.abs(G_ref).max() < 2e-2)
-
-
-@pytest.mark.slow
-def test_bsr_grouped_gather_kernel(rng):
-    """Grouped-union gather kernel (bsr_spmm_pallas_grouped): per-GROUP
-    U-tile union DMAs replace per-chunk bursts — each shared column tile
-    is fetched once per G row tiles. Must match the reference for every
-    precision and group size, including the G-adaptive tables built by
-    from_scipy (VERDICT r2 item 2: 'multi-row-tile blocking to reuse
-    gathered U tiles across adjacent strips')."""
-    import jax.numpy as jnp
-    import scipy.sparse as sp
-
-    from eigenpinns_tpu.sparse.bsr import (BSRTile, bsr_spmm_pallas_grouped,
-                                           bsr_spmm_reference)
+def _format_problem(symmetric: bool):
+    """A 600-point cloud Laplacian; the nonsymmetric variant adds an
+    asymmetric tridiagonal perturbation inside the same locality."""
+    from eigenpinns_tpu.geometry import point_cloud_laplacian
 
     r = np.random.default_rng(11)
-    n = 900
-    rows, cols, vals = [], [], []
-    for i in range(n):
-        for d in r.integers(-150, 150, 5):
-            j = min(max(i + int(d), 0), n - 1)
-            rows.append(i)
-            cols.append(j)
-            vals.append(r.normal())
-    A = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
-    A = A + A.T
-    U = jnp.asarray(r.normal(size=(n, 5)).astype(np.float32))
-    for G in (8, 2):
-        op, _ = BSRTile.from_scipy(A, reorder=True, group=G)
-        assert op.gcid is not None and op.lcid is not None
-        assert np.all(np.diff(np.asarray(op.gid)) >= 0)
-        ref = np.asarray(bsr_spmm_reference(op, U))
-        for prec in ("highest", "bf16"):
-            o2 = op.with_precision(prec)
-            W = np.asarray(bsr_spmm_pallas_grouped(o2, U, interpret=True))
-            tol = 3e-3 if prec == "bf16" else 1e-5
-            assert np.abs(W - ref).max() / np.abs(ref).max() < tol
-    # group=0 disables the tables; traced-layout members skip them too.
-    op0, _ = BSRTile.from_scipy(A, group=0)
-    assert op0.gcid is None
-    opt, _ = BSRTile.from_scipy(A, static_layout=False)
-    assert opt.gcid is None
-    # Family-style chunk padding: pad chunks carry nv=0 real slots and
-    # the zero-skip path must leave their output blocks untouched.
-    base, _ = BSRTile.from_scipy(A, with_transpose=False)
-    opp, _ = BSRTile.from_scipy(A, with_transpose=False,
-                                pad_chunks_to=base.n_chunks + 5)
-    assert opp.gcid is not None
-    ref = np.asarray(bsr_spmm_reference(opp, U))
-    W = np.asarray(bsr_spmm_pallas_grouped(opp, U, interpret=True))
-    assert np.abs(W - ref).max() / np.abs(ref).max() < 1e-5
+    X = r.normal(size=(600, 3))
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    L, _ = point_cloud_laplacian(X, n_neighbors=12)
+    A = L.tocsr()
+    if not symmetric:
+        n = A.shape[0]
+        A = (A + sp.diags([np.full(n - 1, 0.3), np.full(n - 1, -0.7)],
+                          [-1, 1])).tocsr()
+    return A, X
 
 
-def test_bsr_grouped_asymmetric_vjp(rng):
-    """Asymmetric operators through the grouped kernel: the transpose
-    operand carries its OWN grouped tables, and bsr_spmm's scatter-free
-    VJP (dU = A^T g) matches the analytic transpose product."""
+def _build_format(fmt: str, A, X):
+    from eigenpinns_tpu.sparse import (BandedELL, BSRTile, RollingBanded,
+                                       SplitBanded)
+
+    if fmt == "ell":
+        return SparseELL.from_scipy(A), np.arange(A.shape[0])
+    if fmt == "banded":
+        return BandedELL.from_scipy(A)
+    if fmt == "rolling":
+        return RollingBanded.from_scipy(A)
+    if fmt == "bsr":
+        return BSRTile.from_scipy(A)
+    return SplitBanded.from_scipy(A, X=X, window=256, n_clusters=6)
+
+
+@pytest.mark.parametrize("symmetric", [True, False], ids=["sym", "nonsym"])
+@pytest.mark.parametrize("k", [1, 20, 128])
+@pytest.mark.parametrize("fmt", ["ell", "banded", "rolling", "bsr", "split"])
+def test_format_products_match_scipy(fmt, k, symmetric):
+    """Every operator format's forward A@U, VJP A^T g and Gram U^T A U
+    against scipy in float64 (the split format rejects nonsymmetric
+    operators at build time)."""
     import jax
-    import jax.numpy as jnp
-    import scipy.sparse as sp
 
-    from eigenpinns_tpu.sparse.bsr import (BSRTile, bsr_spmm,
-                                           bsr_spmm_pallas_grouped)
+    from eigenpinns_tpu.sparse import spmm_gram
 
-    r = np.random.default_rng(9)
-    n = 800
-    rows = r.integers(0, n, 4 * n)
-    cols = np.clip(rows + r.integers(-90, 90, 4 * n), 0, n - 1)
-    A = sp.coo_matrix((r.normal(size=4 * n), (rows, cols)),
-                      shape=(n, n)).tocsr()          # asymmetric
-    op, perm = BSRTile.from_scipy(A)
-    assert op.transpose_bsr is not None
-    assert op.transpose_bsr.gcid is not None
-    U = jnp.asarray(r.normal(size=(n, 5)).astype(np.float32))
-    Ap = A[perm][:, perm]
-    ref = Ap @ np.asarray(U)
-    W = np.asarray(bsr_spmm_pallas_grouped(op, U, interpret=True))
-    assert np.abs(W - ref).max() / np.abs(ref).max() < 1e-5
-    G = jnp.asarray(r.normal(size=(n, 5)).astype(np.float32))
-    g = jax.grad(lambda u: jnp.vdot(G, bsr_spmm(op, u)))(U)
-    ref_g = Ap.T @ np.asarray(G)
-    assert np.abs(np.asarray(g) - ref_g).max() / np.abs(ref_g).max() < 1e-5
+    A, X = _format_problem(symmetric)
+    if fmt == "split" and not symmetric:
+        with pytest.raises(ValueError, match="symmetric"):
+            _build_format(fmt, A, X)
+        return
+    op, perm = _build_format(fmt, A, X)
+    Ap = A[perm][:, perm].tocsr()
+    r = np.random.default_rng(k)
+    U = r.normal(size=(A.shape[0], k)).astype(np.float32)
+    G = r.normal(size=(A.shape[0], k)).astype(np.float32)
+
+    @jax.jit
+    def products(op, U, G):
+        (W, gram), vjp = jax.vjp(lambda u: spmm_gram(op, u), U)
+        return W, gram, vjp((G, jnp.zeros((k, k), U.dtype)))[0]
+
+    W, gram, dU = products(op, jnp.asarray(U), jnp.asarray(G))
+    U64, G64 = U.astype(np.float64), G.astype(np.float64)
+    W_ref = Ap @ U64
+    for got, ref in ((W, W_ref), (gram, U64.T @ W_ref), (dU, Ap.T @ G64)):
+        got = np.asarray(got, np.float64)
+        assert np.linalg.norm(got - ref) / np.linalg.norm(ref) < 1e-5
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "bf16"])
+def test_operator_dot_precision_names(precision):
+    """Each precision name multiplies in f32 (on the CPU every name is
+    full f32 arithmetic; 'bf16' differs only by its stored operand)."""
+    from eigenpinns_tpu.sparse import operator_dot
+
+    r = np.random.default_rng(0)
+    a = r.normal(size=(64, 96)).astype(np.float32)
+    b = r.normal(size=(96, 8)).astype(np.float32)
+    a_stored = (jnp.asarray(a, jnp.bfloat16) if precision == "bf16"
+                else jnp.asarray(a))
+    out = operator_dot(a_stored, jnp.asarray(b), precision)
+    assert out.dtype == jnp.float32
+    ref = np.asarray(a_stored, np.float64) @ b.astype(np.float64)
+    assert np.abs(np.asarray(out) - ref).max() / np.abs(ref).max() < 1e-6
+
+
+def test_operator_dot_rejects_unknown_precision():
+    from eigenpinns_tpu.sparse import operator_dot
+
+    with pytest.raises(KeyError):
+        operator_dot(jnp.ones((2, 2)), jnp.ones((2, 2)), "bf16x3")
+
+
+def test_bsr_spmm_hbm_bytes_counts_strips_gathers_and_result():
+    from eigenpinns_tpu.sparse import BSRTile
+    from eigenpinns_tpu.sparse.bsr import bsr_spmm_hbm_bytes
+
+    A, _ = _format_problem(True)
+    op, _ = BSRTile.from_scipy(A, chunk=4)
+    k = 20
+    expect = (op.data.size * 4 + op.n_chunks * 4 * 128 * k * 4
+              + A.shape[0] * k * 4)
+    assert bsr_spmm_hbm_bytes(op, k) == expect
+    assert bsr_spmm_hbm_bytes(op, k, rhs_itemsize=2) < expect
